@@ -1,8 +1,10 @@
 """Drone-drone and room collision detection and response.
 
-Port of quadswarm_tpu/env/collisions.py (the obstacle response and the
-pair-kernel interface come later).  Functions take (..., N, 3) inputs with
-any leading env axes.
+Port of quadswarm_tpu/env/collisions.py (the obstacle response comes
+later).  Functions take (..., N, 3) inputs with any leading env axes.
+`drone_collision_response` derives each drone's response partner from the
+dense new-pair mask; `drone_collision_response_indexed` takes it as the
+pair kernel emits it (ops/kernels/swarm_interactions.py::pair_collisions).
 
 Randomness seam: every response takes its raw draws as optional tensors and
 draws them from the caller's generator when they are absent.

@@ -7,14 +7,20 @@ Port of quadswarm_tpu/env/multi.py.  `env_reset` makes E fresh envs;
     reward -> drone/room collisions -> collision rewards -> downwash and
     collision responses -> observations -> episode metrics -> auto-reset
 
+With `EnvConfig.use_pallas_pairs` (the large-swarm path; the flag keeps the
+JAX package's name) the collision stage runs the pair kernel K2, which
+keeps the pair history as packed bits, (E, N, 128) int32, and the
+neighbour observation runs the k-nearest kernel K3, so no (E, N, N) tensor
+is made (`ops/kernels/swarm_interactions.py`).
+
 The JAX package writes one env and vmaps it; here every tensor carries the
 env axis E first and the agent axis N second.  The dynamics of the whole
 fleet run in one launch of `ops/kernels/dynamics_kernel.py` on CUDA
 tensors, and through its plain version on CPU tensors.
 
 Supported so far: shared (non-per-drone) params, float32, raw control, no
-obstacles, no pair kernels, and the scenario modes of the multi-drone mix.
-Anything else raises NotImplementedError.
+obstacles, and the scenario modes of the multi-drone mix.  Anything else
+raises NotImplementedError.
 
 Randomness: every draw comes from the caller's `torch.Generator`, unless
 `draws` supplies it (see `batched_env_step`).  The auto-reset is a Python
@@ -45,6 +51,9 @@ from quadswarm_tpu_torch.env.scenarios import (
 )
 from quadswarm_tpu_torch.env.sensor import SensorNoiseParams, add_noise
 from quadswarm_tpu_torch.ops.kernels.dynamics_kernel import dynamics_tick_fused
+from quadswarm_tpu_torch.ops.kernels.swarm_interactions import (
+    MAX_AGENTS, MAX_NEIGHBORS, PACK_LANES, neighbor_topk_obs, pair_collisions,
+)
 from quadswarm_tpu_torch.ops.rotations import yaw_rot
 from quadswarm_tpu_torch.utils.struct import (
     Struct, map_fields, require_float32, resolve_device,
@@ -120,6 +129,15 @@ class EnvConfig:
         return min(self.neighbor_visible_num, self.num_agents - 1)
 
     @property
+    def use_topk_kernel(self) -> bool:
+        """Whether the neighbour observation goes through K3.  With every
+        neighbour visible (k = N - 1) the slots keep index order, which is
+        the dense path's."""
+        k = self.num_use_neighbor_obs
+        return (self.use_pallas_pairs and 0 < k <= MAX_NEIGHBORS
+                and k < self.num_agents - 1)
+
+    @property
     def room_box(self) -> tuple:
         rd = self.room_dims
         return ((-rd[0] / 2.0, -rd[1] / 2.0, 0.0),
@@ -165,11 +183,13 @@ class EnvConfig:
         """Raise on any option this slice of the port does not run."""
         unsupported = [name for name, on in (
             ("use_obstacles", self.use_obstacles),
-            ("use_pallas_pairs", self.use_pallas_pairs),
             ("obst_density_random", self.obst_density_random),
             ("obst_size_random", self.obst_size_random)) if on]
         if unsupported:
             raise NotImplementedError(f"{unsupported} not ported yet")
+        if self.use_pallas_pairs and self.num_agents > MAX_AGENTS:
+            raise ValueError(f"use_pallas_pairs supports num_agents <= "
+                             f"{MAX_AGENTS}, got {self.num_agents}")
         if self.control_mode != "raw":
             apply_control(self.control_mode, torch.zeros(4))
         require_float32(self.dtype)
@@ -189,7 +209,8 @@ class EnvState(Struct):
     scenario: ScenarioState
     rew_coeff: RewardCoeffs          # (E,) tensors
     tick: torch.Tensor               # (E,) int32
-    prev_coll_pairs: torch.Tensor    # (E, N, N) bool
+    # (E, N, N) bool; with use_pallas_pairs packed bits, (E, N, 128) int32
+    prev_coll_pairs: torch.Tensor
     prev_coll_ids: torch.Tensor      # (E, N) bool
     prev_obst_hits: torch.Tensor
     prev_wall: torch.Tensor
@@ -260,7 +281,12 @@ def _compute_obs(cfg: EnvConfig, dyn: DroneState, goals, gyro_bias, gen,
     if k > 0:
         lo, hi = neighbor_clip_bounds(k, cfg.room_dims, 3.0, cfg.dtype,
                                       dyn.pos.device)
-        parts.append(neighbor_obs(dyn.pos, dyn.vel, k, lo, hi))
+        if cfg.use_topk_kernel:
+            nbr = neighbor_topk_obs(dyn.pos.contiguous(),
+                                    dyn.vel.contiguous(), k)
+            parts.append(torch.minimum(torch.maximum(nbr, lo), hi))
+        else:
+            parts.append(neighbor_obs(dyn.pos, dyn.vel, k, lo, hi))
     return torch.cat(parts, -1), gyro_bias
 
 
@@ -308,8 +334,10 @@ def env_reset(cfg: EnvConfig, params, gen: torch.Generator, num_envs: int,
     zf = lambda *s: torch.zeros((e,) + s, dtype=dtype, device=device)
     state = EnvState(
         dyn=dyn, scenario=scen, rew_coeff=rew_coeff, tick=zi(),
-        prev_coll_pairs=torch.zeros((e, n, n), dtype=torch.bool,
-                                    device=device),
+        prev_coll_pairs=(
+            torch.zeros((e, n, PACK_LANES), dtype=torch.int32, device=device)
+            if cfg.use_pallas_pairs
+            else torch.zeros((e, n, n), dtype=torch.bool, device=device)),
         prev_coll_ids=flags(), prev_obst_hits=flags(), prev_wall=flags(),
         prev_ceiling=flags(), prev_room=flags(),
         obst_active=torch.zeros((e, centers.shape[0]), dtype=torch.bool,
@@ -403,9 +431,15 @@ def _step(cfg: EnvConfig, params, states: EnvState, actions, gen,
     arm = float(params.arm)
     hitbox = cfg.collision_hitbox_radius * arm
     falloff = cfg.collision_falloff_radius * arm
-    dist, curr_pairs = coll.collision_matrix(dyn.pos, hitbox)
-    curr_ids = torch.any(curr_pairs, -1)
-    new_pairs = curr_pairs & ~states.prev_coll_pairs
+    if cfg.use_pallas_pairs:
+        # K2: the (N, N) matrices are never made; the history stays packed.
+        curr_ids, pen_unit, resp_any, resp_partner, curr_pairs = \
+            pair_collisions(dyn.pos.contiguous(), states.prev_coll_pairs,
+                            hitbox, falloff, 1.0)
+    else:
+        dist, curr_pairs = coll.collision_matrix(dyn.pos, hitbox)
+        curr_ids = torch.any(curr_pairs, -1)
+        new_pairs = curr_pairs & ~states.prev_coll_pairs
     unique_ids = curr_ids & ~states.prev_coll_ids
     cct = torch.sum(unique_ids, -1).to(torch.int32) // 2
     grace = tick >= int(1.5 * freq)
@@ -431,9 +465,15 @@ def _step(cfg: EnvConfig, params, states: EnvState, actions, gen,
     # 3. Collision rewards.
     rc = states.rew_coeff
     rew_quadcol = -rc.quadcol_bin[:, None] * unique_ids.to(dtype)
-    rew_proximity = -proximity_penalties(dist, dist <= falloff, falloff,
-                                         rc.quadcol_bin_smooth_max,
-                                         cfg.control_dt)
+    if cfg.use_pallas_pairs:
+        # K2's sum has unit coefficient, sum(1 - d / falloff); the per-env
+        # (annealed) coefficient and dt scale it here.
+        rew_proximity = -(cfg.control_dt
+                          * rc.quadcol_bin_smooth_max[:, None] * pen_unit)
+    else:
+        rew_proximity = -proximity_penalties(dist, dist <= falloff, falloff,
+                                             rc.quadcol_bin_smooth_max,
+                                             cfg.control_dt)
     rew_obst_raw = -curr_obst.to(dtype)
     rew_quadcol_obst = rc.quadcol_bin_obst[:, None] * rew_obst_raw
     rewards = rewards + rew_quadcol + rew_proximity
@@ -454,9 +494,14 @@ def _step(cfg: EnvConfig, params, states: EnvState, actions, gen,
                                        cfg.control_dt, gen,
                                        draws.get("downwash"))
     if cfg.apply_collision_force:
-        vel, omega = coll.drone_collision_response(
-            dyn.pos, vel, omega, new_pairs, gen, draws.get("drone_normals"),
-            draws.get("drone_uniforms"))
+        if cfg.use_pallas_pairs:
+            vel, omega = coll.drone_collision_response_indexed(
+                dyn.pos, vel, omega, resp_any, resp_partner.long(), gen,
+                draws.get("drone_normals"), draws.get("drone_uniforms"))
+        else:
+            vel, omega = coll.drone_collision_response(
+                dyn.pos, vel, omega, new_pairs, gen,
+                draws.get("drone_normals"), draws.get("drone_uniforms"))
         vel, omega = coll.wall_collision_response(
             dyn.pos, vel, omega, cfg.room_box, wall_crash, gen,
             draws.get("wall"))
@@ -464,7 +509,7 @@ def _step(cfg: EnvConfig, params, states: EnvState, actions, gen,
             vel, omega, ceiling_crash, gen, draws.get("ceiling"))
     dyn = dyn.replace(vel=vel, omega=omega)
 
-    # 6. Observations.
+    # 6. Observations (K3 reads the post-response velocities).
     obs, gyro_bias = _compute_obs(cfg, dyn, scen.goals, states.gyro_bias, gen,
                                   draws.get("sensor"))
 

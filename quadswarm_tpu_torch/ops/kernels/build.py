@@ -16,6 +16,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = CSRC / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -72,3 +74,18 @@ def load(source: str) -> ctypes.CDLL:
     if source not in _LOADED:
         _LOADED[source] = ctypes.CDLL(str(build(source)))
     return _LOADED[source]
+
+
+def check_tensor(name: str, t: torch.Tensor, shape: tuple, dtype,
+                 device) -> None:
+    """Raise unless `t` is what a kernel takes: on `device`, of `dtype`, of
+    `shape`, contiguous."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} is not contiguous")

@@ -91,19 +91,6 @@ def _load():
     return lib
 
 
-def _check(name: str, t: torch.Tensor, b: int, trailing: tuple, dtype,
-           device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != (b,) + trailing:
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                         f"expected {(b,) + trailing}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} is not contiguous")
-
-
 def dynamics_tick_fused(params, cfg: DynamicsConfig, state: DroneState,
                         thrust_cmds: torch.Tensor, ou_state: torch.Tensor,
                         rand_yaw_theta: torch.Tensor) -> DroneState:
@@ -120,11 +107,12 @@ def dynamics_tick_fused(params, cfg: DynamicsConfig, state: DroneState,
         raise ValueError(f"unsupported device {device}")
     b = state.pos.shape[0]
     for name in _IN_FIELDS:
-        _check(name, getattr(state, name), b, _TRAILING[name],
-               _DTYPES.get(name, torch.float32), device)
-    _check("thrust_cmds", thrust_cmds, b, (4,), torch.float32, device)
-    _check("ou_state", ou_state, b, (4,), torch.float32, device)
-    _check("rand_yaw_theta", rand_yaw_theta, b, (), torch.float32, device)
+        build.check_tensor(name, getattr(state, name), (b,) + _TRAILING[name],
+                           _DTYPES.get(name, torch.float32), device)
+    for name, t, trailing in (("thrust_cmds", thrust_cmds, (4,)),
+                              ("ou_state", ou_state, (4,)),
+                              ("rand_yaw_theta", rand_yaw_theta, ())):
+        build.check_tensor(name, t, (b,) + trailing, torch.float32, device)
 
     outs = {name: torch.empty((b,) + _TRAILING[name],
                               dtype=_DTYPES.get(name, torch.float32),

@@ -86,7 +86,9 @@ def scenario_state_from_numpy(tree: dict, device="cpu") -> ScenarioState:
 
 def env_state_from_numpy(tree: dict, device="cpu") -> EnvState:
     """A (batched) JAX EnvState as a nested dict of numpy arrays -> the
-    port's EnvState.  The scenario's PRNG key becomes its hash seed."""
+    port's EnvState.  The scenario's PRNG key becomes its hash seed.  A
+    state made under `use_pallas_pairs` carries its pair history packed,
+    (E, N, 128) int32, in the layout the port's pair kernel reads."""
     return _build(EnvState, tree, device)
 
 

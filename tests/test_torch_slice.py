@@ -110,37 +110,75 @@ def _torch(draws):
 
 
 def _jax_step(jcfg, jparams, jstate, actions, draws):
-    """The JAX env step of every env with the given draws injected."""
+    """The JAX env step of every env with the given draws injected.  With
+    `use_pallas_pairs` it follows `batched_env_step`'s large-swarm route: the
+    pair kernel over the whole fleet, `env_step` with `pairs_override` and
+    `defer_obs`, then the k-nearest kernel on the post-response state (both
+    kernels in interpret mode off the TPU)."""
+    n_envs = actions.shape[0]
     scen = j_scen.batched_scenario_step(jcfg.scenario_config(),
                                         jstate.scenario, jstate.tick + 1,
                                         jcfg.mode_list())
     dyn_cfg = jcfg.dynamics_config(arm=jparams.arm)
-    outs = []
-    for e in range(E):
-        s = jax.tree.map(lambda x: x[e], jstate)
+    env = lambda tree, e: jax.tree.map(lambda x: x[e], tree)
+    stack = lambda trees: jax.tree.map(lambda *xs: jnp.stack(xs), *trees)
+    dyns = []
+    for e in range(n_envs):
+        dyn = jstate.dyn
         with taped(j_dyn, [draws["ou"][e]]):
-            ou = j_dyn.ou_noise_step(s.dyn.ou_state, jax.random.PRNGKey(0),
+            ou = j_dyn.ou_noise_step(dyn.ou_state[e], jax.random.PRNGKey(0),
                                      jparams.thrust_noise_ratio)
-        dyn = s.dyn.replace(ou_state=ou)
+        dyn = env(dyn, e).replace(ou_state=ou)
         thrust = raw_control(actions[e])
         for _ in range(jcfg.sim_steps):
             dyn = j_dyn.dynamics_substep(jparams, dyn_cfg, dyn, thrust, ou,
                                          jnp.asarray(draws["yaw"][e]))
-        sensor = [draws["sensor"].get(k, np.zeros((E, N, 3), np.float32))[e]
-                  for k in SENSOR_ORDER]
-        dw = [draws["downwash"][k][e] for k in ("acc", "omega", "axis", "dir")]
+        dyns.append(dyn)
+    pairs = None
+    if jcfg.use_pallas_pairs:
+        pairs = j_multi._batched_pair_interactions(jcfg, jparams, jstate,
+                                                   stack(dyns))
+    defer = jcfg.use_pallas_pairs and 0 < jcfg.num_use_neighbor_obs <= 16
+    sensor = lambda e: [
+        draws["sensor"].get(k, np.zeros(actions.shape[:2] + (3,),
+                                        np.float32))[e] for k in SENSOR_ORDER]
+    outs = []
+    for e in range(n_envs):
+        dw = [draws["downwash"][k][e] for k in ("acc", "omega", "axis", "dir")
+              ] if jcfg.use_downwash else []
         j_coll.set_response_tape({"drone_normals": draws["drone_normals"][e],
                                   "drone_uniforms": draws["drone_uniforms"][e]})
         try:
-            with taped(j_downwash, dw), taped(j_sensor, sensor), \
+            with taped(j_downwash, dw), \
+                    taped(j_sensor, [] if defer else sensor(e)), \
                     taped(j_coll, [draws["wall"][e], draws["ceiling"][e]]):
                 outs.append(j_multi.env_step(
-                    jcfg, jparams, s, actions[e], jax.random.PRNGKey(e),
-                    auto_reset=False, dyn_override=dyn,
-                    scen_override=jax.tree.map(lambda x: x[e], scen)))
+                    jcfg, jparams, env(jstate, e), actions[e],
+                    jax.random.PRNGKey(e), auto_reset=False,
+                    dyn_override=dyns[e], scen_override=env(scen, e),
+                    pairs_override=None if pairs is None else env(pairs, e),
+                    defer_obs=defer))
         finally:
             j_coll.set_response_tape(None)
-    return jax.tree.map(lambda *xs: jnp.stack(xs), *outs)
+    new_state, obs, rew, dones, info = stack(outs)
+    if defer:
+        from quadswarm_tpu.ops.pallas.swarm_interactions import (
+            neighbor_topk_obs)
+        d = new_state.dyn
+        nbr = neighbor_topk_obs(d.pos.astype(jnp.float32),
+                                d.vel.astype(jnp.float32),
+                                jcfg.num_use_neighbor_obs, interpret=True)
+        obs_parts = []
+        for e in range(n_envs):
+            s = env(new_state, e)
+            with taped(j_sensor, sensor(e)):
+                obs_parts.append(j_multi._compute_obs(
+                    jcfg, s.dyn, s.scenario.goals, jstate.gyro_bias[e],
+                    jax.random.PRNGKey(e), s.obst_active, s.obst_pos,
+                    s.obst_size, neighbor_override=nbr[e]))
+        obs, gyro_bias = stack(obs_parts)
+        new_state = new_state.replace(gyro_bias=gyro_bias)
+    return new_state, obs, rew, dones, info
 
 
 def test_slice_lockstep_with_jax(start):
@@ -261,6 +299,8 @@ def test_port_imports_no_jax():
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "importlib.import_module('chip_smoke')\n"
+        "assert ('quadswarm_tpu_torch.ops.kernels.swarm_interactions'\n"
+        "        in sys.modules)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'optax', 'quadswarm_tpu'))\n"
         "assert not bad, bad\n")
