@@ -10,9 +10,10 @@ Phases, each raising on failure:
      K1 (dynamics) on branch-covering batches at the main paths' widths
      and a ragged one; K2, K3, K4 (the pair kernels) on dense clouds with
      a jittered previous tick at the swarm's shape (256 envs x 128), at
-     the cap (4 x 2048), at ragged sizes (3 x 150, 3 x 200) and at the
-     flagship's (1024 x 8).  Masks, partners and packed words must be
-     equal; floats agree within the stated tolerance;
+     the cap (4 x 2048), at ragged sizes (3 x 150, 3 x 200, 3 x 300) and
+     at the flagship's (1024 x 8).  Masks, partners and packed words must be
+     equal; floats agree within the stated tolerance.  An empty kernel at
+     K1's and K3's grids gives the card's launch floor beside the bounds;
   3. agree: the env step on the card against the CPU at a small size, on
      the dense and on the pairs route; the pairs route against the dense
      route on the card in lockstep at 128 drones;
@@ -34,6 +35,11 @@ Phases, each raising on failure:
 adds a torch.profiler breakdown of the flagship rollout, or of the swarm
 rollout (device time by kernel, the device's busy share), and writes its
 Chrome trace.
+
+    python3 chip_smoke.py --phases build,sweep
+
+times K1's wrapper on the host by part at 32,768 drones, and K3 on the
+device at k = 1, 6 and 16 at 256 envs x 128.
 
 Every line with a number carries the card's name and power limit.  The
 second-to-last line is the kernels' JSON record (all four kernels), the
@@ -116,6 +122,16 @@ def graph_time_ms(fn, iters: int = 100, reps: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (iters * reps)
+
+
+def launch_floor_ms(card: str, label: str, blocks: int, threads: int) -> float:
+    """Device time of an empty kernel of this grid in a CUDA graph: the
+    least a launch of that grid takes on this card, whatever it computes."""
+    from quadswarm_tpu_torch.ops.kernels import dynamics_kernel as dk
+    ms = graph_time_ms(lambda: dk.launch_floor(blocks, threads))
+    print(f"[{card}] launch floor, {label}, grid {blocks} x {threads}: "
+          f"{ms * 1e3:.2f} us (empty kernel, CUDA-graph replay)")
+    return ms
 
 
 def random_drone_batch(b: int, cfg, gen, device):
@@ -226,6 +242,8 @@ def check_dynamics_kernel(card: str, label: str, params, cfg, state, cmds,
     dk.dynamics_tick_fused.launches = before   # comparisons do not count
     bound_ms, bound_by = k1_bound_ms(state, cfg.sim_steps,
                                      cfg.orthonormalize_every)
+    threads = dk.block_threads()
+    floor_ms = launch_floor_ms(card, f"K1 at B={b}", -(-b // threads), threads)
     tol = tol_all or DYN_TOL
     print(f"[{card}] K1 dynamics, {label}, B={b}: max_abs_err={max_err:.3g} "
           f"(rtol {tol['rtol']}, atol {tol['atol']}"
@@ -235,7 +253,8 @@ def check_dynamics_kernel(card: str, label: str, params, cfg, state, cmds,
           f"plain {plain_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.3f} us "
           f"({bound_by})")
     return dict(b=b, max_abs_err=max_err, ms=ms, device_ms=device_ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                launch_floor_ms=floor_ms)
 
 
 def check_on_env_state(card: str, label: str, states, cfg, params) -> dict:
@@ -307,14 +326,78 @@ def phase_kernels(card: str) -> tuple:
     return out, pair_checks
 
 
+def phase_sweep(card: str) -> None:
+    """The host time of K1's wrapper by part on a branch-covering batch of
+    32,768 drones, and K3's device time by k at the swarm's shape."""
+    import torch
+    from quadswarm_tpu_torch.env.dynamics import DynamicsConfig
+    from quadswarm_tpu_torch.env.params import make_dynamics_params
+    from quadswarm_tpu_torch.ops.kernels import dynamics_kernel as dk
+
+    params = make_dynamics_params()
+    cfg = DynamicsConfig(floor_threshold=float(params.arm))
+    batch = random_drone_batch(4096 * 8, cfg,
+                               torch.Generator("cuda").manual_seed(1),
+                               torch.device("cuda"))
+
+    # Where K1's per-call time goes on the host: host clock around 2,000
+    # calls of the whole wrapper and of its parts, the device kept busy by
+    # nothing else (the kernel is shorter than the wrapper).
+    def host_us(fn, n=2000):
+        for _ in range(100):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        per_call = (time.perf_counter() - t0) / n * 1e6
+        torch.cuda.synchronize()
+        return per_call
+    count = dk.dynamics_tick_fused.launches
+    b, device = batch[0].pos.shape[0], batch[0].pos.device
+    inputs = dk.kernel_inputs(*batch)
+    threads = dk.block_threads()
+    parts = {
+        "whole wrapper": lambda: dk.dynamics_tick_fused(params, cfg, *batch),
+        "input checks": lambda: dk.check_inputs(inputs, b, device),
+        "3 arenas and 15 views": lambda: dk.output_arenas(b, device),
+        "empty-kernel launch through ctypes": lambda: dk.launch_floor(
+            -(-b // threads), threads),
+    }
+    print(f"[{card}] K1 wrapper on the host, B={b}, us per call: "
+          + ", ".join(f"{name} {host_us(fn):.1f}"
+                      for name, fn in parts.items()))
+    dk.dynamics_tick_fused.launches = count
+
+    # K3 by k at the swarm's shape: k = 1 is the metric pass, the staging
+    # and one pick; each further pick is one sweep over the stored keys.
+    from quadswarm_tpu_torch.ops.kernels import swarm_interactions as si
+    count = si.neighbor_topk_obs.launches
+    pos, _, vel = pair_cloud(SWARM_ENVS, 128,
+                             torch.Generator("cuda").manual_seed(100))
+    by_k = {}
+    for k in (1, 6, 16, 16, 6, 1):
+        _same("K3", f"obs at k={k}", si.neighbor_topk_obs(pos, vel, k),
+              si.neighbor_topk_obs_plain(pos, vel, k))
+        by_k.setdefault(k, []).append(graph_time_ms(
+            lambda: si.neighbor_topk_obs(pos, vel, k)))
+    si.neighbor_topk_obs.launches = count
+    print(f"[{card}] K3 by k, E={SWARM_ENVS} N=128, device us per launch (two "
+          "turns each): " + ", ".join(
+              f"k={k} {a * 1e3:.2f} / {b * 1e3:.2f}"
+              for k, (a, b) in by_k.items()))
+
+
 # --------------------------------------------------------------------------
 # K2, K3, K4: the pair kernels against their plain versions
 # --------------------------------------------------------------------------
 
 # (envs, drones, label): the swarm path's shape, the cap of the packed
-# history, two ragged sizes, and the flagship's.
+# history, three ragged sizes (150 and 200: K3 with 8 keys a lane in
+# registers; 300: K3's shared-memory route under 48 KB; the cap takes it
+# above 48 KB), and the flagship's.
 PAIR_SHAPES = ((256, 128, "swarm shape"), (4, 2048, "cap"),
-               (3, 150, "ragged"), (3, 200, "ragged"),
+               (3, 150, "ragged"), (3, 200, "ragged"), (3, 300, "ragged"),
                (1024, 8, "flagship shape"))
 PAIR_SCALARS = (0.35, 1.0, 10.0)      # hitbox, falloff, max_penalty
 SWARM_NEIGHBORS = 6
@@ -462,6 +545,9 @@ def check_pair_kernels(card: str, label: str, pos, prev, vel, hitbox,
         out[kernel] = dict(e=e, n=n, max_abs_err=errs[kernel], ms=ms,
                            device_ms=device_ms, plain_ms=plain_ms,
                            bound_ms=bound_ms, bound_by=bound_by)
+    rows = si.topk_launch_shape(n)[1]
+    out["K3"]["launch_floor_ms"] = launch_floor_ms(
+        card, f"K3 at E={e} N={n}", e * -(-n // rows), 32 * rows)
     # comparisons and timings do not count as launches of a main path
     (si.pair_collisions.launches, si.neighbor_topk_obs.launches,
      si.swarm_interactions.launches) = counts
@@ -1024,6 +1110,8 @@ def kernel_records(checks: dict, launches: dict) -> list:
             "plain_ms": main_check["plain_ms"],
             "bound_ms": main_check["bound_ms"],
             "bound_by": main_check["bound_by"],
+            # an empty kernel at this kernel's grid (K1 and K3 only)
+            "launch_floor_ms": main_check.get("launch_floor_ms"),
             # no single PyTorch call computes any of the four (torch.cdist
             # and torch.topk each cover only a part of K2-K4)
             "library_ms": None,
@@ -1035,8 +1123,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="build,kernels,agree,rollout,swarm,sim",
                     help="comma-separated subset of build,kernels,agree,"
-                         "rollout,swarm,sim,profile (profile: torch.profiler "
-                         "breakdown of a rollout, off by default)")
+                         "rollout,swarm,sim,profile,sweep (off by default: "
+                         "profile, a torch.profiler breakdown of a rollout; "
+                         "sweep, K1's wrapper by part and K3 by k)")
     ap.add_argument("--trace", default=None,
                     help="with the profile phase: write its Chrome trace "
                          "to this path")
@@ -1067,6 +1156,8 @@ def main(argv=None) -> int:
     launches = {}
     if "build" in phases:
         phase_build(card)
+    if "sweep" in phases:
+        phase_sweep(card)
     if "kernels" in phases:
         k1_checks, pair_checks = phase_kernels(card)
         checks["K1"] += k1_checks

@@ -76,6 +76,18 @@ def load(source: str) -> ctypes.CDLL:
     return _LOADED[source]
 
 
+def current_stream(device: torch.device) -> int:
+    """The handle of PyTorch's current CUDA stream on `device`, as the
+    integer a kernel's entry point takes.  Read through the private
+    `torch._C._cuda_getCurrentRawStream`, which builds no Stream object;
+    `torch.cuda.current_stream(device).cuda_stream` is the public way to
+    the same handle, should a PyTorch release drop the private name."""
+    index = device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
 def check_tensor(name: str, t: torch.Tensor, shape: tuple, dtype,
                  device) -> None:
     """Raise unless `t` is what a kernel takes: on `device`, of `dtype`, of

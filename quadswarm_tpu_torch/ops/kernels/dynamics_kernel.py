@@ -14,6 +14,14 @@ result; this wrapper passes the fields' own row-major buffers instead.  The
 OU noise and the crash yaw are drawn outside the kernel with the caller's
 generator, as `dynamics_step_flat` draws them outside the Pallas kernel.
 
+The outputs come from three arenas per call (float32, bool, int32; see
+`arena_layout`): every field of the returned state is a contiguous view of
+one of them, with the shape and dtype the plain version gives it.  The
+wrapper's host work is kept small because the env step pays it every tick:
+inputs are checked in one pass against shapes cached by batch size, and the
+ctypes pointer block is reused between calls (so the wrapper is not
+re-entrant: one thread launches at a time).
+
 `dynamics_tick_fused` takes a CPU state to the plain version
 (env/dynamics.py::dynamics_tick) and a CUDA state to the kernel; there is
 no fallback from one to the other.
@@ -21,6 +29,8 @@ no fallback from one to the other.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -47,6 +57,96 @@ _TRAILING = {"pos": (3,), "vel": (3,), "rot": (3, 3), "omega": (3,),
 _DTYPES = {"on_floor": torch.bool, "crashed_floor": torch.bool,
            "crashed_wall": torch.bool, "crashed_ceiling": torch.bool,
            "step_count": torch.int32}
+
+# The kernel's 11 inputs, in the order of its pointer block: the state's
+# input fields, then the tick's thrust commands, OU state and crash yaw.
+_IN_NAMES = _IN_FIELDS + ("thrust_cmds", "ou_state", "rand_yaw_theta")
+_IN_TRAILING = tuple(_TRAILING[f] for f in _IN_FIELDS) + ((4,), (4,), ())
+_IN_DTYPES = tuple(_DTYPES.get(f, torch.float32) for f in _IN_NAMES)
+# The (B, 4) inputs, which the kernel reads as one 16-byte word per drone.
+_IN_WIDE = tuple(k for k, trailing in enumerate(_IN_TRAILING)
+                 if trailing == (4,))
+
+# Output arenas, a layout shared with csrc/dynamics_kernel.cu.  Float arena:
+# these fields in this order, each starting on a multiple of 4 floats (16
+# bytes).  Bool arena: the four flags, B each.  Int arena: step_count.
+ARENA_FLOAT_FIELDS = ("pos", "vel", "omega", "acc", "accelerometer",
+                      "omega_dot", "torque", "rot", "thrust_cmds_damp",
+                      "thrust_rot_damp")
+ARENA_BOOL_FIELDS = ("on_floor", "crashed_floor", "crashed_wall",
+                     "crashed_ceiling")
+assert set(ARENA_FLOAT_FIELDS + ARENA_BOOL_FIELDS + ("step_count",)) \
+    == set(_OUT_FIELDS)
+
+
+class ArenaLayout(NamedTuple):
+    """The float output arena for a batch of B drones: its size in floats,
+    and each field's (name, offset in floats, shape, strides) in it."""
+    float_numel: int
+    float_fields: tuple
+
+
+@functools.lru_cache(maxsize=64)
+def arena_layout(b: int) -> ArenaLayout:
+    """Where the kernel writes its outputs for B drones.  The float fields
+    hold 38 * B floats; each starts on a 16-byte boundary, so when B is no
+    multiple of 4 up to 3 floats of padding follow a field."""
+    fields, offset = [], 0
+    for name in ARENA_FLOAT_FIELDS:
+        shape = (b,) + _TRAILING[name]
+        strides = tuple(int(np.prod(shape[k + 1:], dtype=np.int64))
+                        for k in range(len(shape)))
+        fields.append((name, offset, shape, strides))
+        offset += -(-int(np.prod(shape, dtype=np.int64)) // 4) * 4
+    return ArenaLayout(offset, tuple(fields))
+
+
+def output_arenas(b: int, device) -> tuple:
+    """Allocate the three arenas for B drones (the call's only allocations)
+    and cut them into fields.  Returns ((float, bool, int32 arena), {field
+    name: contiguous view})."""
+    layout = arena_layout(b)
+    arena_f = torch.empty(layout.float_numel, dtype=torch.float32,
+                          device=device)
+    arena_b = torch.empty((len(ARENA_BOOL_FIELDS), b), dtype=torch.bool,
+                          device=device)
+    arena_i = torch.empty(b, dtype=torch.int32, device=device)
+    views = {name: torch.as_strided(arena_f, shape, strides, offset)
+             for name, offset, shape, strides in layout.float_fields}
+    views.update(zip(ARENA_BOOL_FIELDS, arena_b.unbind(0)))
+    views["step_count"] = arena_i
+    return (arena_f, arena_b, arena_i), views
+
+
+@functools.lru_cache(maxsize=64)
+def _input_shapes(b: int) -> tuple:
+    return tuple((b,) + trailing for trailing in _IN_TRAILING)
+
+
+def kernel_inputs(state: DroneState, thrust_cmds, ou_state,
+                  rand_yaw_theta) -> tuple:
+    """The kernel's 11 inputs, in the order of its pointer block."""
+    return tuple(getattr(state, f) for f in _IN_FIELDS) + (
+        thrust_cmds, ou_state, rand_yaw_theta)
+
+
+def check_inputs(inputs: tuple, b: int, device) -> None:
+    """Raise unless each of the kernel's 11 inputs (in the order of
+    `_IN_NAMES`) is on `device`, of its dtype, of its shape for B drones and
+    contiguous, and each (B, 4) input starts on a 16-byte boundary (as a
+    fresh tensor, a field of the kernel's own output and any row slice of
+    either do).  One pass; the message is built only on a failure."""
+    shapes = _input_shapes(b)
+    for k, t in enumerate(inputs):
+        if (t.shape != shapes[k] or t.dtype != _IN_DTYPES[k]
+                or t.device != device or not t.is_contiguous()):
+            build.check_tensor(_IN_NAMES[k], t, shapes[k], _IN_DTYPES[k],
+                               device)
+    for k in _IN_WIDE:
+        if inputs[k].data_ptr() % 16:
+            raise ValueError(f"{_IN_NAMES[k]}: starts at address "
+                             f"{inputs[k].data_ptr():#x}, not on a 16-byte "
+                             "boundary")
 
 
 def param_vector(params, cfg: DynamicsConfig) -> np.ndarray:
@@ -85,10 +185,19 @@ def _load():
                    ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
                    ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    lib.qs_dynamics_block_threads.argtypes = []
+    lib.qs_dynamics_block_threads.restype = ctypes.c_int
+    lib.qs_launch_floor.argtypes = [ctypes.c_int, ctypes.c_int,
+                                    ctypes.c_void_p]
+    lib.qs_launch_floor.restype = ctypes.c_int
     lib.qs_error_string.argtypes = [ctypes.c_int]
     lib.qs_error_string.restype = ctypes.c_char_p
     lib.ready = True
     return lib
+
+
+# The kernel's pointer block: 11 inputs, then the three output arenas.
+_PTRS = (ctypes.c_void_p * (len(_IN_NAMES) + 3))()
 
 
 def dynamics_tick_fused(params, cfg: DynamicsConfig, state: DroneState,
@@ -106,31 +215,37 @@ def dynamics_tick_fused(params, cfg: DynamicsConfig, state: DroneState,
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
     b = state.pos.shape[0]
-    for name in _IN_FIELDS:
-        build.check_tensor(name, getattr(state, name), (b,) + _TRAILING[name],
-                           _DTYPES.get(name, torch.float32), device)
-    for name, t, trailing in (("thrust_cmds", thrust_cmds, (4,)),
-                              ("ou_state", ou_state, (4,)),
-                              ("rand_yaw_theta", rand_yaw_theta, ())):
-        build.check_tensor(name, t, (b,) + trailing, torch.float32, device)
-
-    outs = {name: torch.empty((b,) + _TRAILING[name],
-                              dtype=_DTYPES.get(name, torch.float32),
-                              device=device)
-            for name in _OUT_FIELDS}
-    tensors = ([getattr(state, name) for name in _IN_FIELDS]
-               + [thrust_cmds, ou_state, rand_yaw_theta]
-               + [outs[name] for name in _OUT_FIELDS])
-    ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+    inputs = kernel_inputs(state, thrust_cmds, ou_state, rand_yaw_theta)
+    check_inputs(inputs, b, device)
+    arenas, outs = output_arenas(b, device)
+    for k, t in enumerate(inputs + arenas):
+        _PTRS[k] = t.data_ptr()
     lib = _load()
-    stream = torch.cuda.current_stream(device).cuda_stream
     rc = lib.qs_dynamics_step(_param_buffer(params, cfg), cfg.sim_steps,
-                              cfg.orthonormalize_every, b, ptrs, stream)
+                              cfg.orthonormalize_every, b, _PTRS,
+                              build.current_stream(device))
     if rc != 0:
         raise RuntimeError("dynamics kernel launch failed: "
                            + lib.qs_error_string(rc).decode())
     dynamics_tick_fused.launches += 1
-    return state.replace(ou_state=ou_state, **outs)
+    return DroneState(ou_state=ou_state, **outs)
 
 
 dynamics_tick_fused.launches = 0
+
+
+def block_threads() -> int:
+    """Threads (drones) per block of the built kernel."""
+    return _load().qs_dynamics_block_threads()
+
+
+def launch_floor(blocks: int, threads: int) -> None:
+    """Launch an empty kernel of the given grid on the current stream: timed
+    in a CUDA graph it gives the card's launch floor, the least any kernel
+    of that grid can take.  Not counted as a launch of K1."""
+    lib = _load()
+    rc = lib.qs_launch_floor(blocks, threads,
+                             build.current_stream(torch.device("cuda")))
+    if rc != 0:
+        raise RuntimeError("empty kernel launch failed: "
+                           + lib.qs_error_string(rc).decode())

@@ -4,7 +4,8 @@ Replaces quadswarm_tpu/ops/pallas/swarm_interactions.py: the Pallas TPU
 kernels `_pair_collision_kernel` (K2, wrapper `pair_collisions`),
 `_neighbor_topk_kernel` (K3, `neighbor_topk_obs`) and `_interaction_kernel`
 (K4, `swarm_interactions`).  Source: csrc/swarm_interactions.cu (one warp
-per row drone; see the note there on the design and on what bounds it).
+per row drone; K3 computes a row's metrics once and keeps them on chip for
+its k picks; see the note there on the design and on what bounds it).
 
 They are the large-swarm path of the env step (`EnvConfig.use_pallas_pairs`):
 K2 is the collision stage with an exact new-pair history kept as packed
@@ -164,7 +165,8 @@ def _load():
                                        ptr, ptr, ptr, ptr, ptr, ptr]
     lib.qs_swarm_interactions.argtypes = [ptr, i32, i32, f32, f32, f32, f32,
                                           ptr, ptr, ptr, ptr, ptr]
-    lib.qs_neighbor_topk.argtypes = [ptr, ptr, i32, i32, i32, ptr, ptr]
+    lib.qs_neighbor_topk.argtypes = [ptr, ptr, i32, i32, i32, i32, i32, ptr,
+                                     ptr]
     for fn in (lib.qs_pair_collisions, lib.qs_swarm_interactions,
                lib.qs_neighbor_topk):
         fn.restype = ctypes.c_int
@@ -177,8 +179,7 @@ def _load():
 def _launch(name: str, fn_name: str, device, *args) -> None:
     """Call one entry point on the current stream; raise on a launch error."""
     lib = _load()
-    stream = torch.cuda.current_stream(device).cuda_stream
-    rc = getattr(lib, fn_name)(*args, stream)
+    rc = getattr(lib, fn_name)(*args, build.current_stream(device))
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: "
                            + lib.qs_error_string(rc).decode())
@@ -232,6 +233,21 @@ def pair_collisions(pos: torch.Tensor, prev_packed: torch.Tensor, hitbox,
     return col_any, penalty, resp_any, partner, packed
 
 
+def topk_launch_shape(n: int) -> tuple:
+    """How K3 launches for N drones an env: (keys per lane, rows per block).
+    A row's N metrics stay in registers, 4 or 8 a lane, up to N = 128 and
+    N = 256 (keys per lane 0: in shared memory above that); a block holds
+    8 rows (warps) up to N = 128 and 16 above, so that fewer blocks stage
+    the planes of a large env.  A block's shared memory is the six planes
+    of N floats plus, on the shared-memory route, 32 * ceil(N / 32) keys a
+    row: 176 KB at N = 2048, which the launch opts into above 48 KB."""
+    if n <= 128:
+        return 4, 8
+    if n <= 256:
+        return 8, 16
+    return 0, 16
+
+
 def neighbor_topk_obs(pos: torch.Tensor, vel: torch.Tensor,
                       k: int) -> torch.Tensor:
     """Fused k-nearest neighbour observation (K3).  pos, vel (E, N, 3)
@@ -251,7 +267,7 @@ def neighbor_topk_obs(pos: torch.Tensor, vel: torch.Tensor,
         return neighbor_topk_obs_plain(pos, vel, k)
     obs = torch.empty((e, n, k * 6), dtype=torch.float32, device=device)
     _launch("neighbor_topk_obs", "qs_neighbor_topk", device, pos.data_ptr(),
-            vel.data_ptr(), e, n, k, obs.data_ptr())
+            vel.data_ptr(), e, n, k, *topk_launch_shape(n), obs.data_ptr())
     neighbor_topk_obs.launches += 1
     return obs
 
