@@ -12,8 +12,9 @@ Phases, each raising on failure:
      a jittered previous tick at the swarm's shape (256 envs x 128), at
      the cap (4 x 2048), at ragged sizes (3 x 150, 3 x 200, 3 x 300) and
      at the flagship's (1024 x 8).  Masks, partners and packed words must be
-     equal; floats agree within the stated tolerance.  An empty kernel at
-     K1's and K3's grids gives the card's launch floor beside the bounds;
+     equal, and the same on a second call; floats agree within the stated
+     tolerance.  An empty kernel at each kernel's grid gives the card's
+     launch floor beside the bounds;
   3. agree: the env step on the card against the CPU at a small size, on
      the dense and on the pairs route; the pairs route against the dense
      route on the card in lockstep at 128 drones;
@@ -38,8 +39,8 @@ Chrome trace.
 
     python3 chip_smoke.py --phases build,sweep
 
-times K1's wrapper on the host by part at 32,768 drones, and K3 on the
-device at k = 1, 6 and 16 at 256 envs x 128.
+times K1's wrapper on the host by part at 32,768 drones, K2's at 256 envs
+x 128, and K3 on the device at k = 1, 6 and 16 at 256 envs x 128.
 
 Every line with a number carries the card's name and power limit.  The
 second-to-last line is the kernels' JSON record (all four kernels), the
@@ -328,7 +329,8 @@ def phase_kernels(card: str) -> tuple:
 
 def phase_sweep(card: str) -> None:
     """The host time of K1's wrapper by part on a branch-covering batch of
-    32,768 drones, and K3's device time by k at the swarm's shape."""
+    32,768 drones, K3's device time by k at the swarm's shape, and the host
+    time of K2's wrapper by part there."""
     import torch
     from quadswarm_tpu_torch.env.dynamics import DynamicsConfig
     from quadswarm_tpu_torch.env.params import make_dynamics_params
@@ -387,6 +389,38 @@ def phase_sweep(card: str) -> None:
               f"k={k} {a * 1e3:.2f} / {b * 1e3:.2f}"
               for k, (a, b) in by_k.items()))
 
+    # K2's wrapper on the host by part at the swarm's shape.
+    from quadswarm_tpu_torch.ops.kernels import build
+    count = si.pair_collisions.launches
+    e, n = SWARM_ENVS, 128
+    pos, pos0, _ = pair_cloud(e, n, torch.Generator("cuda").manual_seed(100))
+    prev = pair_history(pos0)
+    shape = si.pair_launch_shape(e, n)
+    out = si.pair_outputs(e, n, device)
+    hitbox, falloff, max_pen = PAIR_SCALARS
+    args = (pos.data_ptr(), prev.data_ptr(), e, n, shape.rows, shape.slices,
+            si.square_within(hitbox), si.square_within(falloff),
+            si._slope(falloff, max_pen), si._f32(max_pen),
+            *(t.data_ptr() for t in out))
+    parts = {
+        "whole wrapper": lambda: si.pair_collisions(pos, prev, *PAIR_SCALARS),
+        "input checks": lambda: (
+            si._fleet_shape("pos", pos),
+            build.check_tensor("pos", pos, (e, n, 3), torch.float32, device),
+            build.check_tensor("prev_packed", prev, (e, n, si.PACK_LANES),
+                               torch.int32, device)),
+        "5 allocations": lambda: si.pair_outputs(e, n, device),
+        "launch shape and thresholds (cached)": lambda: (
+            si.pair_launch_shape(e, n), si.square_within(hitbox),
+            si.square_within(falloff)),
+        "launch through ctypes": lambda: si._launch(
+            "pair_collisions", "qs_pair_collisions", device, *args),
+    }
+    print(f"[{card}] K2 wrapper on the host, E={e} N={n}, us per call: "
+          + ", ".join(f"{name} {host_us(fn):.1f}"
+                      for name, fn in parts.items()))
+    si.pair_collisions.launches = count
+
 
 # --------------------------------------------------------------------------
 # K2, K3, K4: the pair kernels against their plain versions
@@ -401,10 +435,14 @@ PAIR_SHAPES = ((256, 128, "swarm shape"), (4, 2048, "cap"),
                (1024, 8, "flagship shape"))
 PAIR_SCALARS = (0.35, 1.0, 10.0)      # hitbox, falloff, max_penalty
 SWARM_NEIGHBORS = 6
-# Penalty sums (K2, K4): the kernel adds each lane's terms in column order
-# and then the 32 lanes pairwise, the plain version in torch.sum's order.
+# Penalty sums (K2, K4): each 16-column word's terms are added in column
+# order, then the row's word sums in word order, however the row is split
+# among threads, the same bits on every run; the plain version adds in
+# torch.sum's order.  The terms themselves are the plain version's bits.
 # Everything else the pair kernels put out must equal the plain version's:
-# both take sqrt((dx*dx + dy*dy) + dz*dz) with nothing contracted.
+# both take sqrt((dx*dx + dy*dy) + dz*dz) with nothing contracted (the
+# kernels test the thresholds on the squared distance against the largest
+# square whose root is within them, which decides alike).
 PEN_TOL = dict(rtol=1e-4, atol=1e-5)
 # Float operations per pair of drones: 3 subtractions, 5 for the squared
 # norm, the root, 2 threshold compares and 2 for the penalty are 13, called
@@ -495,12 +533,14 @@ def check_pair_kernels(card: str, label: str, pos, prev, vel, hitbox,
     got = calls["K2"][0]()
     torch.cuda.synchronize()
     want = calls["K2"][1]()
-    for name, g, w in zip(("col_any", "penalty", "resp_any", "resp_partner",
-                           "curr_packed"), got, want):
+    names = ("col_any", "penalty", "resp_any", "resp_partner", "curr_packed")
+    for name, g, w in zip(names, got, want):
         if name == "penalty":
             errs["K2"] = _close("K2", name, g, w, PEN_TOL)
         else:
             _same("K2", name, g, w)
+    for name, g, a in zip(names, got, calls["K2"][0]()):
+        _same("K2", f"{name} on a second call", a, g)
     was = si.unpack_pairs(prev, n)
     now = si.unpack_pairs(got[4], n)
     cases = {"new": int((now & ~was).sum()), "repeated": int((now & was).sum()),
@@ -518,16 +558,19 @@ def check_pair_kernels(card: str, label: str, pos, prev, vel, hitbox,
     torch.cuda.synchronize()
     want = calls["K4"][1]()
     errs["K4"] = 0.0
-    for name, g, w in zip(("col_any", "partner", "penalty", "min_dist"), got,
-                          want):
+    names = ("col_any", "partner", "penalty", "min_dist")
+    for name, g, w in zip(names, got, want):
         if name == "penalty":
             errs["K4"] = _close("K4", name, g, w, PEN_TOL)
         else:
             _same("K4", name, g, w)
+    for name, g, a in zip(names, got, calls["K4"][0]()):
+        _same("K4", f"{name} on a second call", a, g)
 
     print(f"[{card}] pair kernels, {label}, E={e} N={n} k={k}: masks, "
           f"partners, packed words, picks and min_dist equal the plain "
-          f"versions'; pairs {cases}")
+          f"versions', and K2's and K4's outputs are the same bits on a "
+          f"second call; pairs {cases}")
     out = {}
     iters = 200 if e * n * n <= 1 << 23 else 50
     for kernel, (fused, plain) in calls.items():
@@ -548,6 +591,11 @@ def check_pair_kernels(card: str, label: str, pos, prev, vel, hitbox,
     rows = si.topk_launch_shape(n)[1]
     out["K3"]["launch_floor_ms"] = launch_floor_ms(
         card, f"K3 at E={e} N={n}", e * -(-n // rows), 32 * rows)
+    for kid, history in (("K2", True), ("K4", False)):
+        shape = si.pair_launch_shape(e, n, history)
+        out[kid]["launch_floor_ms"] = launch_floor_ms(
+            card, f"{kid} at E={e} N={n} ({shape.rows} rows x "
+            f"{shape.slices} slices)", shape.blocks, shape.threads)
     # comparisons and timings do not count as launches of a main path
     (si.pair_collisions.launches, si.neighbor_topk_obs.launches,
      si.swarm_interactions.launches) = counts
@@ -1110,7 +1158,7 @@ def kernel_records(checks: dict, launches: dict) -> list:
             "plain_ms": main_check["plain_ms"],
             "bound_ms": main_check["bound_ms"],
             "bound_by": main_check["bound_by"],
-            # an empty kernel at this kernel's grid (K1 and K3 only)
+            # an empty kernel at this kernel's grid
             "launch_floor_ms": main_check.get("launch_floor_ms"),
             # no single PyTorch call computes any of the four (torch.cdist
             # and torch.topk each cover only a part of K2-K4)
@@ -1125,7 +1173,7 @@ def main(argv=None) -> int:
                     help="comma-separated subset of build,kernels,agree,"
                          "rollout,swarm,sim,profile,sweep (off by default: "
                          "profile, a torch.profiler breakdown of a rollout; "
-                         "sweep, K1's wrapper by part and K3 by k)")
+                         "sweep, K1's and K2's wrappers by part, K3 by k)")
     ap.add_argument("--trace", default=None,
                     help="with the profile phase: write its Chrome trace "
                          "to this path")

@@ -3,9 +3,14 @@
 Replaces quadswarm_tpu/ops/pallas/swarm_interactions.py: the Pallas TPU
 kernels `_pair_collision_kernel` (K2, wrapper `pair_collisions`),
 `_neighbor_topk_kernel` (K3, `neighbor_topk_obs`) and `_interaction_kernel`
-(K4, `swarm_interactions`).  Source: csrc/swarm_interactions.cu (one warp
-per row drone; K3 computes a row's metrics once and keeps them on chip for
-its k picks; see the note there on the design and on what bounds it).
+(K4, `swarm_interactions`).  Source: csrc/swarm_interactions.cu, where the
+note at the top gives the designs and what bounds each kernel.  K2 and K4:
+a thread per (row drone, slice of columns), blocks of whole envs or of row
+tiles of one env (`pair_launch_shape`), each env's positions staged once a
+block, thresholds tested on the squared distance (`square_within`), K2's
+history rows read and written whole by the block.  K3: a warp per row drone
+that computes the row's metrics once and keeps them on chip for its k
+picks (`topk_launch_shape`).
 
 They are the large-swarm path of the env step (`EnvConfig.use_pallas_pairs`):
 K2 is the collision stage with an exact new-pair history kept as packed
@@ -17,6 +22,17 @@ dense (E, N, N) tensors with the kernel's own arithmetic: distances in the
 difference form, sqrt((dx*dx + dy*dy) + dz*dz), summed in that order.  A
 CPU tensor takes the plain version and a CUDA tensor the kernel; there is
 no fallback from one to the other.  Each wrapper counts its launches.
+Every output equals the plain version's bit for bit except K2's and K4's
+penalty sums, which the kernels add in another order (each 16-column word
+in column order, then the row's words in word order: the same bits on
+every run, for every launch shape and every count of envs); the callers'
+PEN_TOL (rtol 1e-4, atol 1e-5: chip_smoke.py, the card tests) covers that
+order, since the terms are the plain version's bits and only their sum is
+rounded differently.  What bounds K2 and K4 (the note in the source): the
+pair loop's instructions, issued for every pair from both of its rows, and
+K2's history write, 512 B a drone; at the small fleets the launch and one
+block's chain: a global round trip, one thread's word and the combine of
+the row's slices behind a barrier.
 
 Packed pair history (`pack_pairs` / `unpack_pairs`), the JAX package's
 layout: row d of an (..., N, PACK_LANES) int32 tensor holds N bits, bit b of
@@ -26,6 +42,9 @@ from ceil(N / 16) on are zero.
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -161,10 +180,12 @@ def _load():
     if getattr(lib, "ready", False):
         return lib
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.qs_pair_collisions.argtypes = [ptr, ptr, i32, i32, f32, f32, f32, f32,
-                                       ptr, ptr, ptr, ptr, ptr, ptr]
-    lib.qs_swarm_interactions.argtypes = [ptr, i32, i32, f32, f32, f32, f32,
-                                          ptr, ptr, ptr, ptr, ptr]
+    lib.qs_pair_collisions.argtypes = [ptr, ptr, i32, i32, i32, i32, f32, f32,
+                                       f32, f32, ptr, ptr, ptr, ptr, ptr, ptr]
+    lib.qs_swarm_interactions.argtypes = [ptr, i32, i32, i32, i32, f32, f32,
+                                          f32, f32, ptr, ptr, ptr, ptr, ptr]
+    lib.qs_pair_shared_bytes.argtypes = [i32, i32, i32, i32, i32]
+    lib.qs_pair_shared_bytes.restype = ctypes.c_longlong
     lib.qs_neighbor_topk.argtypes = [ptr, ptr, i32, i32, i32, i32, i32, ptr,
                                      ptr]
     for fn in (lib.qs_pair_collisions, lib.qs_swarm_interactions,
@@ -197,6 +218,111 @@ def _fleet_shape(name: str, pos: torch.Tensor) -> tuple:
     return pos.shape[0], pos.shape[1]
 
 
+# K2 and K4 launch in blocks of `rows` consecutive rows of the flattened
+# (E * N) fleet, `slices` threads a row.  A thread takes at most
+# PAIR_WORDS_PER_THREAD words (16 columns each) of its row, and rows are
+# split further, down to a word a thread, until the fleet has
+# PAIR_MIN_THREADS threads (enough warps to hide the pair loop's latency on
+# an H100's 132 SMs), into at most PAIR_MAX_SLICES slices.  A block has 32
+# rows, or 16 or 8 where fewer blocks would leave SMs idle (a warp then
+# holds 2 or 4 slices), doubled while it stays within PAIR_MAX_THREADS
+# threads (the kernels' bound is 512) and the grid at PAIR_MIN_BLOCKS
+# blocks or more.  A fleet split into more than 16 slices has fewer than
+# 2,112 rows, so 8 rows a block: 256 threads at most.
+PAIR_WORDS_PER_THREAD = 8
+PAIR_MAX_SLICES = 32
+PAIR_MIN_THREADS = 132 * 256
+PAIR_MAX_THREADS = 256
+PAIR_MIN_BLOCKS = 264
+PAIR_SMS = 132
+SHARED_BYTES_MAX = 232448            # what an H100 block can opt into
+
+
+class PairLaunch(NamedTuple):
+    """How K2 or K4 launches: `blocks` of `threads` = rows * slices; a block
+    covers `rows` consecutive rows (env * N + i) and stages the positions of
+    the at most `span` envs they touch; `shared_bytes` of dynamic shared
+    memory (csrc/swarm_interactions.cu::pair_shared_bytes)."""
+    blocks: int
+    threads: int
+    rows: int
+    slices: int
+    span: int
+    shared_bytes: int
+
+
+def pair_shape(e: int, n: int, rows: int, slices: int,
+               history: bool = True) -> PairLaunch:
+    """The launch of `rows` rows a block, `slices` threads a row, for K2
+    (`history`) or K4: the kernel's own count of blocks and shared bytes.
+    Planes of 16 * ceil(N / 16) floats for each env a block touches (a
+    block starts a multiple of gcd(rows, N) into an env), K2's staged
+    history words (ceil(N / 16) a row, padded to an odd count), and with
+    several slices each word's penalty sum and, from the next 16-byte
+    boundary, four words a row for each slice past the first."""
+    live = -(-n // PACK_BITS)
+    span = min(e, (n - math.gcd(rows, n) + rows + n - 1) // n)
+    row_words = rows * (live | 1)
+    words = 3 * span * PACK_BITS * live + (row_words if history else 0)
+    if slices > 1:
+        words = -(-(words + row_words) // 4) * 4 + 4 * (slices - 1) * rows
+    shared = 4 * words
+    return PairLaunch(-(-e * n // rows), rows * slices, rows, slices, span,
+                      shared)
+
+
+@functools.lru_cache(maxsize=256)
+def pair_launch_shape(e: int, n: int, history: bool = True) -> PairLaunch:
+    """How K2 (`history`) or K4 launches for E envs of N drones.  Slices:
+    as many as PAIR_MIN_THREADS asks for, or PAIR_WORDS_PER_THREAD words a
+    thread does, at most PAIR_MAX_SLICES and at most the row's words, then
+    evened out so that every slice has words.  Rows: 32, halved down to 8
+    while the grid has fewer blocks than PAIR_SMS, else doubled while the
+    block stays within PAIR_MAX_THREADS threads and the grid at
+    PAIR_MIN_BLOCKS blocks or more."""
+    words = -(-n // PACK_BITS)
+    want = max(-(-words // PAIR_WORDS_PER_THREAD),
+               -(-PAIR_MIN_THREADS // (e * n)))
+    per = -(-words // min(want, words, PAIR_MAX_SLICES))
+    slices = -(-words // per)
+    rows = 32
+    while rows > 8 and -(-e * n // rows) < PAIR_SMS:
+        rows //= 2
+    while rows >= 32 and 2 * rows * slices <= PAIR_MAX_THREADS \
+            and -(-e * n // (2 * rows)) >= PAIR_MIN_BLOCKS:
+        rows *= 2
+    return pair_shape(e, n, rows, slices, history)
+
+
+@functools.lru_cache(maxsize=64)
+def square_within(radius: float) -> float:
+    """The largest float32 s whose correctly rounded float32 square root is
+    at most float32(radius), so that sqrt(s) <= radius exactly when s <= it
+    (the root is monotone); -1.0 when no s >= 0 qualifies (a negative or NaN
+    radius).  The kernels test their thresholds on squared distances with
+    it.  A binary search over the bit patterns of the floats in [0, inf]."""
+    r = np.float32(radius)
+    if not r >= 0:
+        return -1.0
+    as_float = lambda bits: np.array(bits, np.uint32).view(np.float32)[()]
+    lo, hi = 0, 0x7F800000
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if np.sqrt(as_float(mid)) <= r:
+            lo = mid
+        else:
+            hi = mid - 1
+    return float(as_float(lo))
+
+
+def pair_outputs(e: int, n: int, device) -> tuple:
+    """K2's five outputs, uninitialised: col_any, penalty, resp_any,
+    resp_partner (E, N) and curr_packed (E, N, PACK_LANES)."""
+    new = lambda dtype, *s: torch.empty((e, n) + s, dtype=dtype, device=device)
+    return (new(torch.bool), new(torch.float32), new(torch.bool),
+            new(torch.int32), new(torch.int32, PACK_LANES))
+
+
 def pair_collisions(pos: torch.Tensor, prev_packed: torch.Tensor, hitbox,
                     falloff, max_penalty):
     """Collision stage for large swarms, O(N) memory (K2).
@@ -211,7 +337,8 @@ def pair_collisions(pos: torch.Tensor, prev_packed: torch.Tensor, hitbox,
         prev_packed);
       resp_partner (E, N) int32: the lowest new j > d if any, else the
         lowest new i < d, else 0 (the reference's pair iteration order);
-      curr_packed (E, N, PACK_LANES) int32: this tick's pair bits."""
+      curr_packed (E, N, PACK_LANES) int32: this tick's pair bits, a new
+        tensor (prev_packed is only read)."""
     e, n = _fleet_shape("pos", pos)
     device = pos.device
     build.check_tensor("pos", pos, (e, n, 3), torch.float32, device)
@@ -220,17 +347,15 @@ def pair_collisions(pos: torch.Tensor, prev_packed: torch.Tensor, hitbox,
     if device.type == "cpu":
         return pair_collisions_plain(pos, prev_packed, hitbox, falloff,
                                      max_penalty)
-    new = lambda dtype, *s: torch.empty((e, n) + s, dtype=dtype, device=device)
-    col_any, penalty = new(torch.bool), new(torch.float32)
-    resp_any, partner = new(torch.bool), new(torch.int32)
-    packed = new(torch.int32, PACK_LANES)
-    _launch("pair_collisions", "qs_pair_collisions", device,
-            pos.data_ptr(), prev_packed.data_ptr(), e, n, _f32(hitbox),
-            _f32(falloff), _slope(falloff, max_penalty),
-            _f32(max_penalty), col_any.data_ptr(), penalty.data_ptr(),
-            resp_any.data_ptr(), partner.data_ptr(), packed.data_ptr())
+    shape = pair_launch_shape(e, n)
+    out = pair_outputs(e, n, device)
+    _launch("pair_collisions", "qs_pair_collisions", device, pos.data_ptr(),
+            prev_packed.data_ptr(), e, n, shape.rows, shape.slices,
+            square_within(hitbox), square_within(falloff),
+            _slope(falloff, max_penalty), _f32(max_penalty),
+            *(t.data_ptr() for t in out))
     pair_collisions.launches += 1
-    return col_any, penalty, resp_any, partner, packed
+    return out
 
 
 def topk_launch_shape(n: int) -> tuple:
@@ -285,16 +410,24 @@ def swarm_interactions(pos: torch.Tensor, hitbox, falloff, max_penalty):
     build.check_tensor("pos", pos, (e, n, 3), torch.float32, device)
     if device.type == "cpu":
         return swarm_interactions_plain(pos, hitbox, falloff, max_penalty)
+    shape = pair_launch_shape(e, n, history=False)
     new = lambda dtype: torch.empty((e, n), dtype=dtype, device=device)
-    col_any, partner = new(torch.bool), new(torch.int32)
-    penalty, min_dist = new(torch.float32), new(torch.float32)
+    out = (new(torch.bool), new(torch.int32), new(torch.float32),
+           new(torch.float32))
     _launch("swarm_interactions", "qs_swarm_interactions", device,
-            pos.data_ptr(), e, n, _f32(hitbox), _f32(falloff),
+            pos.data_ptr(), e, n, shape.rows, shape.slices,
+            square_within(hitbox), square_within(falloff),
             _slope(falloff, max_penalty), _f32(max_penalty),
-            col_any.data_ptr(), partner.data_ptr(), penalty.data_ptr(),
-            min_dist.data_ptr())
+            *(t.data_ptr() for t in out))
     swarm_interactions.launches += 1
-    return col_any, partner, penalty, min_dist
+    return out
+
+
+def kernel_shared_bytes(e: int, n: int, rows: int, slices: int,
+                        history: bool) -> int:
+    """The shared bytes the built kernel reserves for this launch (to hold
+    `pair_shape` to the source on the card)."""
+    return _load().qs_pair_shared_bytes(e, n, rows, slices, int(history))
 
 
 pair_collisions.launches = 0
