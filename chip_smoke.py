@@ -28,14 +28,25 @@ Phases, each raising on failure:
      dense route, in turns, each with its rate, ms per tick and peak memory;
   6. sim: `batched_env_step` with random actions at 4096 envs x 8 (mix) for
      ep_len + 2 ticks, through one auto-reset of every env; then K1 alone
-     on the drone state the simulator reached.
+     on the drone state the simulator reached;
+  7. train: the main path, train.sh's training: a `Trainer` built from
+     train.sh's flags (1024 envs x 8, rollout 128, batch 1024, replay 0.75,
+     annealing, downwash, the 256-wide attention model, TF32 off) for 3
+     iterations, each with its rollout/learner split, losses, launches,
+     device-to-host syncs per tick (at most 1) and peak memory; then
+     `batched_replay_step` on the card against the CPU on the dense route
+     (16 x 8) and the pairs route (16 x 128), every branch fired; the
+     learner on the card against the CPU; the train CLI with train.sh's
+     flags for 2 iterations and a resume for a third.
 
     python3 chip_smoke.py --phases build,profile --trace out/trace.json
     python3 chip_smoke.py --phases build,profile --profile_path swarm
+    python3 chip_smoke.py --phases build,profile --profile_path train
 
-adds a torch.profiler breakdown of the flagship rollout, or of the swarm
-rollout (device time by kernel, the device's busy share), and writes its
-Chrome trace.
+adds a torch.profiler breakdown of the flagship rollout, of the swarm
+rollout, or of train.sh's Trainer (replay rollout ticks, then minibatch
+steps): device time by kernel, the device's busy share; with --trace it
+writes the Chrome trace.
 
     python3 chip_smoke.py --phases build,sweep
 
@@ -874,43 +885,25 @@ def phase_rollout(card: str) -> tuple:
     return counts, states, cfg, params
 
 
-def phase_profile(card: str, trace: str | None, path: str) -> None:
-    """torch.profiler over 8 rollout ticks, at the flagship width (`path`
-    "flagship": 1024 x 8) or on the large-swarm path ("swarm": 256 x 128,
-    pair kernels on): device time by kernel, the device's busy share, and
-    the host time of the per-tick auto-reset sync.  With `trace`, the
-    Chrome trace is written to that path."""
+def _profile(card: str, label: str, fn, count: int, unit: str,
+             trace: str | None) -> None:
+    """torch.profiler over one call of fn, which does `count` units of
+    work: wall and device-busy time per unit, device time by kernel, and
+    the host time of the synchronising calls.  With `trace`, the Chrome
+    trace is written to that path."""
     from pathlib import Path
 
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from quadswarm_tpu_torch.env.multi import EnvConfig, env_reset
-    from quadswarm_tpu_torch.env.params import make_dynamics_params
-    from quadswarm_tpu_torch.env.reward import RewardCoeffs
-    from quadswarm_tpu_torch.models.actor_critic import ActorCritic
-    from quadswarm_tpu_torch.parallel.ppo import PPOConfig, collect_rollout
 
-    t = 8
-    e, env_kw = {"flagship": (1024, FLAGSHIP_ENV),
-                 "swarm": (SWARM_ENVS, SWARM_ENV)}[path]
-    cfg = EnvConfig(**env_kw)
-    params = make_dynamics_params(dt=cfg.dt)
-    gen = torch.Generator("cuda").manual_seed(0)
-    torch.manual_seed(0)
-    model = ActorCritic(num_neighbors=6, device="cuda")
-    rew = RewardCoeffs(**FLAGSHIP_REWARD)
-    states, obs = env_reset(cfg, params, gen, e, device="cuda")
-    ppo = PPOConfig(rollout=t)
-    states, obs, *_ = collect_rollout(cfg, params, model, ppo, states, obs,
-                                      gen, rew)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        collect_rollout(cfg, params, model, ppo, states, obs, gen, rew)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    from torch.autograd import DeviceType
     dev = lambda ev: ev.self_device_time_total
     avgs = prof.key_averages()
     # Device-side events only (kernels, copies, fills): an aten operator
@@ -920,24 +913,74 @@ def phase_profile(card: str, trace: str | None, path: str) -> None:
                       and dev(ev) > 0), key=dev, reverse=True)
     busy_us = sum(dev(ev) for ev in kernels)
     launches = sum(ev.count for ev in kernels)
-    print(f"[{card}] profile, {t} rollout ticks at {e}x{cfg.num_agents} "
-          f"({path}): wall {wall_us / t / 1e3:.2f} ms/tick, device busy "
-          f"{busy_us / t / 1e3:.2f} ms/tick ({busy_us / wall_us:.1%}), "
-          f"{launches / t:.0f} device ops/tick")
+    print(f"[{card}] profile, {label}: wall {wall_us / count / 1e3:.2f} "
+          f"ms/{unit}, device busy {busy_us / count / 1e3:.2f} ms/{unit} "
+          f"({busy_us / wall_us:.1%}), {launches / count:.0f} device "
+          f"ops/{unit}")
     ours = ("dynamics_kernel", "pair_collision_kernel",
             "neighbor_topk_kernel", "interaction_kernel")
     for ev in kernels[:12] + [ev for ev in kernels[12:]
                               if any(name in ev.key for name in ours)]:
-        print(f"[{card}]   {dev(ev) / t:9.1f} us/tick  {ev.count / t:6.1f}"
-              f"/tick  {ev.key[:90]}")
+        print(f"[{card}]   {dev(ev) / count:9.1f} us/{unit}  "
+              f"{ev.count / count:6.1f}/{unit}  {ev.key[:90]}")
     for ev in avgs:
         if ev.key in ("cudaStreamSynchronize", "aten::is_nonzero",
                       "aten::_local_scalar_dense", "cudaMemcpyAsync"):
-            print(f"[{card}]   host {ev.self_cpu_time_total / t:8.1f} us/tick"
-                  f"  {ev.count / t:5.1f}/tick  {ev.key}")
+            print(f"[{card}]   host {ev.self_cpu_time_total / count:8.1f} "
+                  f"us/{unit}  {ev.count / count:5.1f}/{unit}  {ev.key}")
     if trace:
         Path(trace).parent.mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(trace)
+
+
+def phase_profile(card: str, trace: str | None, path: str) -> None:
+    """torch.profiler over 8 rollout ticks at the flagship width (`path`
+    "flagship": 1024 x 8) or on the large-swarm path ("swarm": 256 x 128,
+    pair kernels on); or ("train") over train.sh's Trainer: 8 rollout
+    ticks with collision replay, then 64 of its minibatch steps."""
+    import torch
+    from quadswarm_tpu_torch.env.multi import EnvConfig, env_reset
+    from quadswarm_tpu_torch.env.params import make_dynamics_params
+    from quadswarm_tpu_torch.env.reward import RewardCoeffs
+    from quadswarm_tpu_torch.models.actor_critic import ActorCritic
+    from quadswarm_tpu_torch.parallel import ppo as P
+
+    t = 8
+    if path == "train":
+        tr = _flagship_trainer()
+        tr.set_ppo_cfg(tr.ppo_cfg.replace(rollout=t))
+        tr.iteration()                                   # warm-up
+        rollout = lambda: P.collect_rollout(
+            tr.env_cfg, tr.dyn_params, tr.model, tr.ppo_cfg, tr.env_states,
+            tr.obs, tr.gen, tr.current_rew_coeff(), tr.replay_states,
+            tr.norm_state)
+        _, _, _, traj, last_value, _ = rollout()
+        adv, ret = P.compute_gae(traj, last_value, tr.ppo_cfg.gamma,
+                                 tr.ppo_cfg.gae_lambda)
+        steps = P.minibatch_layout(tuple(traj.reward.shape),
+                                   tr.ppo_cfg.batch_size).num_minibatches
+        _profile(card, f"{t} rollout ticks with replay at 1024x8 (train)",
+                 rollout, t, "tick", None)
+        _profile(card, f"{steps} minibatch steps of 1024 (train)",
+                 lambda: P.sgd_epochs(tr.model, tr.optimizer, tr.ppo_cfg,
+                                      traj, adv, ret, tr.gen),
+                 steps, "step", trace)
+        return
+    e, env_kw = {"flagship": (1024, FLAGSHIP_ENV),
+                 "swarm": (SWARM_ENVS, SWARM_ENV)}[path]
+    cfg = EnvConfig(**env_kw)
+    params = make_dynamics_params(dt=cfg.dt)
+    gen = torch.Generator("cuda").manual_seed(0)
+    torch.manual_seed(0)
+    model = ActorCritic(num_neighbors=6, device="cuda")
+    rew = RewardCoeffs(**FLAGSHIP_REWARD)
+    states, obs = env_reset(cfg, params, gen, e, device="cuda")
+    ppo = P.PPOConfig(rollout=t)
+    states, obs, *_ = P.collect_rollout(cfg, params, model, ppo, states, obs,
+                                        gen, rew)
+    _profile(card, f"{t} rollout ticks at {e}x{cfg.num_agents} ({path})",
+             lambda: P.collect_rollout(cfg, params, model, ppo, states, obs,
+                                       gen, rew), t, "tick", trace)
 
 
 def _reset_counts() -> None:
@@ -1121,6 +1164,412 @@ def phase_sim(card: str) -> dict:
     return check_on_env_state(card, "sim state", states, cfg, params)
 
 
+# ---------------------------------------------------------------------------
+# The training path (train.sh)
+# ---------------------------------------------------------------------------
+
+TRAIN_ITERS = 3
+# One iteration of train.sh: rollout 128 x 1024 envs x 8 drones.
+TRAIN_ITER_STEPS = 128 * 1024 * 8
+
+
+def train_sh_flags() -> list:
+    """train.sh's flags, read from the script beside this one."""
+    import shlex
+    from pathlib import Path
+    text = (Path(__file__).resolve().parent / "train.sh").read_text()
+    line = next(ln for ln in text.replace("\\\n", " ").splitlines()
+                if "training.train" in ln)
+    words = shlex.split(line)
+    start = next(i for i, w in enumerate(words) if w.endswith(
+        "training.train")) + 1
+    return [w for w in words[start:] if w != "$@"]
+
+
+class SyncCounter:
+    """Counts the device-to-host synchronisations of the CUDA calls made
+    inside it (torch.cuda.set_sync_debug_mode), apart from explicit
+    torch.cuda.synchronize() calls, which it counts separately."""
+
+    def __enter__(self):
+        import warnings
+        import torch
+        self._catch = warnings.catch_warnings(record=True)
+        self.records = self._catch.__enter__()
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        import os
+        import torch
+        torch.cuda.set_sync_debug_mode(0)
+        self._catch.__exit__(*exc)
+        syncs = [r for r in self.records
+                 if "synchronizing" in str(r.message)]
+        explicit = os.path.join("torch", "cuda", "__init__.py")
+        self.explicit = sum(r.filename.endswith(explicit) for r in syncs)
+        self.implicit = len(syncs) - self.explicit
+        self.where = sorted({f"{r.filename}:{r.lineno}" for r in syncs
+                             if not r.filename.endswith(explicit)})
+        return False
+
+
+def _flagship_trainer(device="cuda"):
+    """A Trainer at train.sh's settings, built as the CLI builds it."""
+    import torch
+    from quadswarm_tpu_torch.env.params import make_dynamics_params
+    from quadswarm_tpu_torch.parallel.ppo import Trainer
+    from quadswarm_tpu_torch.training import config
+
+    args = config.parse_swarm_cfg(train_sh_flags())
+    env_cfg = config.env_config_from_args(args)
+    ppo = config.ppo_config_from_args(args)
+    torch.manual_seed(args.seed)
+    model = config.model_from_args(args, env_cfg, device=device)
+    return Trainer(env_cfg, ppo, model, make_dynamics_params(dt=env_cfg.dt),
+                   seed=args.seed,
+                   anneal_schedules=config.anneal_schedules_from_args(args),
+                   base_rew_coeff=config.base_rew_coeff_from_args(args),
+                   device=device)
+
+
+def _train_flagship(card: str) -> tuple:
+    """TRAIN_ITERS iterations of the Trainer at train.sh's settings, each
+    with its launches, syncs, losses, times and peak memory.  Returns the
+    launch counts of all iterations and the final env state."""
+    import torch
+
+    trainer = _flagship_trainer()
+    ppo, cfg = trainer.ppo_cfg, trainer.env_cfg
+    e, n, t = ppo.num_envs, cfg.num_agents, ppo.rollout
+    if (e, n, t, ppo.batch_size, ppo.replay_sample_prob, cfg.use_downwash,
+            trainer.model.action_head.in_features) != (
+            1024, 8, 128, 1024, 0.75, True, 512):
+        raise AssertionError("the trainer is not at train.sh's settings")
+    if trainer.anneal_schedules["quadcol_bin"] != (5.0, 3e8):
+        raise AssertionError(f"annealing {trainer.anneal_schedules}")
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    total = {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+    for it in range(TRAIN_ITERS):
+        before = [p.detach().clone() for p in trainer.model.parameters()]
+        _reset_counts()
+        t0 = time.perf_counter()
+        with SyncCounter() as syncs:
+            metrics, infos = trainer.iteration()
+        wall = time.perf_counter() - t0
+        counts = _read_counts()
+        for kid in total:
+            total[kid] += counts[kid]
+        if counts != {"K1": t, "K2": 0, "K3": 0, "K4": 0}:
+            raise AssertionError(f"iteration {it}: launches {counts}, "
+                                 f"expected K1 {t} (dense route)")
+        m = {k: float(v) for k, v in metrics.items()}
+        for k in ("loss", "pg_loss", "v_loss", "entropy", "approx_kl"):
+            if not math.isfinite(m[k]):
+                raise AssertionError(f"iteration {it}: {k} = {m[k]}")
+        changed = max(float((p.detach() - b).abs().max())
+                      for p, b in zip(trainer.model.parameters(), before))
+        if not changed > 0:
+            raise AssertionError(f"iteration {it}: the parameters did not "
+                                 "change")
+        per_tick = syncs.implicit / t
+        if per_tick > 1:
+            raise AssertionError(f"iteration {it}: {syncs.implicit} syncs in "
+                                 f"{t} ticks, at {syncs.where}")
+        sec = trainer.seconds
+        print(f"[{card}] train iteration {it} (1024x8 x 128, batch 1024, "
+              f"replay 0.75): {wall:.3f} s = rollout {sec['rollout']:.3f} s "
+              f"+ learner {sec['learner']:.3f} s "
+              f"({sec['learner'] / (e * n * t // ppo.batch_size) * 1e3:.3f} "
+              f"ms per minibatch); {e * n * t / wall:,.0f} agent-steps/s; "
+              f"loss {m['loss']:.5g} pg_loss {m['pg_loss']:.5g} v_loss "
+              f"{m['v_loss']:.5g} entropy {m['entropy']:.5g} approx_kl "
+              f"{m['approx_kl']:.3g}; parameters moved up to {changed:.3g}; "
+              f"K1 launches {counts['K1']}; {syncs.implicit} device-to-host "
+              f"syncs ({per_tick:.3f} per tick; {syncs.explicit} explicit "
+              f"for the timing split); peak allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**20:,.0f} MiB")
+    stats = trainer.episode_stats(infos)
+    print(f"[{card}] train: {trainer.env_steps:,} env steps, "
+          f"{trainer.step} optimizer steps, collision coefficient "
+          f"{trainer.current_rew_coeff().quadcol_bin:.5g}, "
+          f"{int(stats.get('num_episodes', 0))} episodes ended in the last "
+          "rollout")
+    return total, trainer.env_states, cfg, trainer.dyn_params
+
+
+def _replay_draws(e: int, n: int, gen) -> dict:
+    """A replay tick's draws: the env tick's, the replayed observation's
+    sensor noise and the replay uniforms (each sample one below 0.5, so
+    every eligible episode end replays at sample_prob 0.75)."""
+    import torch
+    d = _draws(e, n, gen)
+    d["replay_sensor"] = {k: torch.randn((e, n, 3), generator=gen)
+                          for k in d["sensor"]}
+    d["replay_u"] = torch.rand((e,), generator=gen) * 0.5
+    d["replay_choice"] = torch.rand((e,), generator=gen)
+    return d
+
+
+def _close_trees(label: str, pairs, tol) -> float:
+    """Float leaves within tol, the rest equal; returns the largest float
+    difference."""
+    import torch
+    worst = 0.0
+    for name, g, c in pairs:
+        g = g.cpu()
+        if g.dtype.is_floating_point:
+            t = DYN_TOL_FIELD.get(name.split(".")[-1], tol)
+            if not torch.allclose(g, c, **t):
+                raise AssertionError(f"{label} {name}: card and CPU differ "
+                                     f"by {float((g - c).abs().max())}")
+            worst = max(worst, float((g - c).abs().max()))
+        elif not torch.equal(g, c):
+            raise AssertionError(f"{label} {name}: card and CPU differ")
+    return worst
+
+
+def _replay_agree(card: str, label: str, env_kw: dict, e: int,
+                  ticks: int = 20) -> dict:
+    """batched_replay_step on the card against the CPU for `ticks` ticks,
+    both from the CPU's state and replay state each tick, with the same
+    draws.  The start is prepared so that every branch fires: all envs can
+    fly and hold 3 checkpoints; the first half of them is 5 ticks or less
+    from a checkpoint tick and has two drones inside the hitbox; the second
+    half ends its episode within 13 ticks, half of those with a buffer to
+    replay, half with an empty one (a fresh reset)."""
+    import torch
+    from quadswarm_tpu_torch.env.multi import EnvConfig, env_reset
+    from quadswarm_tpu_torch.env.params import make_dynamics_params
+    from quadswarm_tpu_torch.env.replay import (
+        batched_replay_step, init_replay_state)
+    from quadswarm_tpu_torch.env.reward import RewardCoeffs
+    from quadswarm_tpu_torch.utils.struct import leaves
+
+    cfg = EnvConfig(**env_kw)
+    n = cfg.num_agents
+    params = make_dynamics_params(dt=cfg.dt)
+    gen_cpu = torch.Generator().manual_seed(21)
+    gen_gpu = torch.Generator("cuda").manual_seed(21)
+    draw_gen = torch.Generator().manual_seed(22)
+    states, _ = env_reset(cfg, params, gen_cpu, e, device="cpu",
+                          rew_coeff=RewardCoeffs(**FLAGSHIP_REWARD))
+    half = e // 2
+    idx = torch.arange(e, dtype=torch.int32)
+    tick = torch.where(idx < half, 1445 + idx % 5,
+                       cfg.ep_len - 12 + idx % 10).to(torch.int32)
+    pos = states.dyn.pos.clone()
+    pos[..., 2] = pos[..., 2].clamp(min=1.5)
+    pos[:half, 1] = pos[:half, 0] + torch.tensor([0.05, 0.0, 0.0])
+    states = states.replace(tick=tick, dyn=states.dyn.replace(pos=pos))
+    rstates = init_replay_state(states)
+    zi = torch.zeros(e, dtype=torch.int32)
+    filled = (idx >= half) & (idx < half + half // 2)
+    rstates = rstates.replace(
+        activated=torch.ones(e, dtype=torch.bool), ep_cp_count=zi + 3,
+        buffer_count=torch.where(filled, 3, 0).to(torch.int32),
+        buffer_idx=torch.where(filled, 3, 0).to(torch.int32))
+    fired = dict(checkpoint=0, collision_write=0, replay=0, fresh_reset=0)
+    _reset_counts()
+    worst = 0.0
+    for _ in range(ticks):
+        actions = torch.rand((e, n, 4), generator=draw_gen) * 2 - 1
+        draws = _replay_draws(e, n, draw_gen)
+        s_gpu, r_gpu = _to_cuda(states), _to_cuda(rstates)
+        cpu = batched_replay_step(cfg, params, 0.75, states, rstates,
+                                  actions, gen_cpu, draws)
+        gpu = batched_replay_step(cfg, params, 0.75, s_gpu, r_gpu,
+                                  actions.cuda(), gen_gpu, _to_cuda(draws))
+        ns, nr = cpu[0], cpu[1]
+        done = cpu[4][:, 0]
+        fresh = done & ~nr.saved_in_replay_buffer
+        keep = ~fresh
+        fired["checkpoint"] += int((nr.ep_cp_count
+                                    > rstates.ep_cp_count).sum())
+        fired["collision_write"] += int((nr.buffer_count
+                                         > rstates.buffer_count).sum())
+        fired["replay"] += int((nr.replayed_events
+                                > rstates.replayed_events).sum())
+        fired["fresh_reset"] += int(fresh.sum())
+        pairs = [(f"replay.{a}", g, c) for (a, g), (_, c)
+                 in zip(leaves(gpu[1]), leaves(nr))]
+        pairs += [(f"state.{a}", g[keep.cuda()], c[keep]) for (a, g), (_, c)
+                  in zip(leaves(gpu[0]), leaves(ns))]
+        pairs += [("obs", gpu[2][keep.cuda()], cpu[2][keep]),
+                  ("reward", gpu[3], cpu[3]), ("dones", gpu[4], cpu[4])]
+        pairs += [(f"info.{k}", gpu[5][k], cpu[5][k]) for k in cpu[5]
+                  if not k.startswith("rewards/") and cpu[5][k].dim()
+                  and cpu[5][k].shape[0] == e and k != "true_reward"]
+        worst = max(worst, _close_trees(label, pairs, TRAJ_TOL))
+        g = gpu[0]
+        if fresh.any():
+            f = fresh.cuda()
+            if not (bool((g.tick[f] == 0).all())
+                    and not bool(g.prev_coll_pairs[f].any())
+                    and bool((g.dyn.vel[f] == 0).all())
+                    and bool((g.collisions_per_episode[f] == 0).all())):
+                raise AssertionError(f"{label}: a fresh reset on the card "
+                                     "is not a fresh episode")
+        states, rstates = ns, nr
+    counts = _read_counts()
+    _reset_counts()
+    if not all(fired.values()):
+        raise AssertionError(f"{label}: replay branches fired {fired}")
+    if counts["K1"] != ticks or (cfg.use_pallas_pairs and not (
+            counts["K2"] == ticks and counts["K3"] >= ticks)):
+        raise AssertionError(f"{label}: launches {counts} in {ticks} ticks")
+    print(f"[{card}] replay step card vs CPU, {label}, {e}x{n}, {ticks} "
+          f"ticks: rings, counters, masks equal, floats max_abs_err "
+          f"{worst:.3g} (rtol {TRAJ_TOL['rtol']}, atol {TRAJ_TOL['atol']}); "
+          f"fired {fired}; launches {counts}")
+    return counts
+
+
+# The learner on the card against the CPU.  Gradients of one minibatch:
+# each tensor within GRAD_RTOL of its largest entry, plus GRAD_ATOL of the
+# model's largest gradient entry (float32 rounding of terms that size: the
+# bias of the attention logits has a gradient that is zero in exact
+# arithmetic, the softmax being shift-invariant, and is rounding residue on
+# both devices).  Parameters after the
+# Adam steps: within the learning rate, since Adam's first steps move a
+# parameter by about +-lr whatever its gradient's size, and a gradient
+# component that is zero to rounding can take either sign on either device.
+GRAD_RTOL = 1e-4
+GRAD_ATOL = 1e-6
+
+
+def _learner_agree(card: str) -> None:
+    """The loss and gradients of one minibatch, then one sgd_epochs call (4
+    minibatches of 256), on the card and on the CPU from the same
+    flagship-width weights, trajectory and chunk permutation."""
+    import copy
+    import torch
+    from quadswarm_tpu_torch.models.actor_critic import ActorCritic
+    from quadswarm_tpu_torch.parallel import ppo as P
+
+    gen = torch.Generator().manual_seed(31)
+    t, e, n, dim = 8, 16, 8, 54
+    cfg = P.PPOConfig(batch_size=256)
+    torch.manual_seed(31)
+    cpu_model = ActorCritic(num_neighbors=6, rnn_size=256, neighbor_hidden=256,
+                            device="cpu")
+    gpu_model = copy.deepcopy(cpu_model).cuda()
+    f = lambda *s: torch.randn((t, e, n) + s, generator=gen)
+    traj = P.Transition(obs=f(dim), actions=f(4), log_prob=f() - 5.0,
+                        value=f(), reward=f(), done=f() > 1.5)
+    adv, ret = f(), f()
+    flat = lambda x: x.reshape((t * e * n,) + x.shape[3:])[: cfg.batch_size]
+    batch = tuple(flat(x) for x in (traj.obs, traj.actions, traj.log_prob,
+                                    traj.value, adv, ret))
+    losses, grad_err = [], 0.0
+    for model, move in ((cpu_model, lambda x: x),
+                        (gpu_model, lambda x: x.cuda())):
+        loss, _ = P.ppo_loss(model, cfg, tuple(move(x) for x in batch))
+        loss.backward()
+        losses.append(float(loss.detach()))
+    top = max(float(c.grad.abs().max()) for c in cpu_model.parameters())
+    for (name, g), c in zip(gpu_model.named_parameters(),
+                            cpu_model.parameters()):
+        err = float((g.grad.cpu() - c.grad).abs().max())
+        scale = float(c.grad.abs().max())
+        if err > GRAD_RTOL * scale + GRAD_ATOL * top:
+            raise AssertionError(f"learner: gradient of {name} differs by "
+                                 f"{err} (largest entry {scale}, of the "
+                                 f"model {top})")
+        grad_err = max(grad_err, err / (scale + top))
+    cpu_model.zero_grad(set_to_none=True)
+    gpu_model.zero_grad(set_to_none=True)
+
+    lay = P.minibatch_layout((t, e, n), cfg.batch_size)
+    perms = [torch.randperm(lay.num_chunks, generator=gen)[None]]
+    P.sgd_epochs(cpu_model, P.make_optimizer(cpu_model, cfg), cfg, traj, adv,
+                 ret, None, perms=perms)
+    P.sgd_epochs(gpu_model, P.make_optimizer(gpu_model, cfg), cfg,
+                 P.Transition(*(x.cuda() for x in traj)), adv.cuda(),
+                 ret.cuda(), None, perms=perms)
+    diffs = torch.cat([(g.detach().cpu() - c.detach()).abs().flatten()
+                       for g, c in zip(gpu_model.parameters(),
+                                       cpu_model.parameters())])
+    worst = float(diffs.max())
+    print(f"[{card}] learner card vs CPU, flagship width: one minibatch's "
+          f"loss {losses[1]:.7g} / {losses[0]:.7g}, gradients within "
+          f"{grad_err:.3g} of each tensor's largest entry plus the model's "
+          f"(rtol {GRAD_RTOL}, atol {GRAD_ATOL} of {top:.3g}); "
+          f"after sgd_epochs (4 x 256) parameters max_abs_err {worst:.3g} "
+          f"(atol lr = {cfg.learning_rate}), {int((diffs > 1e-6).sum())} of "
+          f"{diffs.numel()} beyond 1e-6")
+    if worst > cfg.learning_rate:
+        raise AssertionError(f"learner: parameters differ by {worst}")
+
+
+def _cli_twice(card: str) -> None:
+    """The train CLI with train.sh's flags for 2 iterations into a
+    temporary directory, then again for a third: it resumes, and env_steps
+    go on."""
+    import os
+    import tempfile
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent
+    env = {**os.environ, "PYTHONPATH": str(root)}
+    with tempfile.TemporaryDirectory() as tmp:
+        flags = train_sh_flags() + [f"--train_dir={tmp}", "--experiment=smoke",
+                                    "--log_every_iters=1"]
+        outs = []
+        for iters in (2, 3):
+            t0 = time.perf_counter()
+            out = subprocess.run(
+                [sys.executable, "-m", "quadswarm_tpu_torch.training.train",
+                 *flags, f"--train_for_env_steps={iters * TRAIN_ITER_STEPS}"],
+                cwd=root, env=env, capture_output=True, text=True,
+                timeout=600)
+            if out.returncode:
+                raise AssertionError(f"train CLI exited {out.returncode}: "
+                                     f"{out.stderr[-2000:]}")
+            outs.append((out.stdout, time.perf_counter() - t0))
+        exp = Path(tmp) / "smoke"
+        config = json.loads((exp / "config.json").read_text())
+        lines = [json.loads(x) for x in
+                 (exp / "metrics.jsonl").read_text().splitlines()]
+        cps = sorted(p.name for p in (exp / "checkpoint_p0").iterdir())
+    steps = [r["env_steps"] for r in lines]
+    if config["device"] != "cuda" or steps != [
+            i * TRAIN_ITER_STEPS for i in (1, 2, 3)]:
+        raise AssertionError(f"CLI metrics at env steps {steps}")
+    if "resumed from" not in outs[1][0] or cps != [
+            f"checkpoint_{i * TRAIN_ITER_STEPS:012d}.pt" for i in (2, 3)]:
+        raise AssertionError(f"CLI resume: checkpoints {cps}")
+    if not all(math.isfinite(r["loss"]) for r in lines):
+        raise AssertionError("CLI losses are not finite")
+    print(f"[{card}] train CLI with train.sh's flags: 2 iterations in "
+          f"{outs[0][1]:.1f} s, then resumed for a third in "
+          f"{outs[1][1]:.1f} s (processes, start-up included); "
+          f"perf/sps {[round(r['perf/sps']) for r in lines]}, checkpoints "
+          f"{cps}")
+
+
+def phase_train(card: str) -> tuple:
+    """The training path: the flagship Trainer (the main path), collision
+    replay on the card against the CPU on both routes, the learner on the
+    card against the CPU, and the CLI with a resume.  Returns the main
+    path's launch counts and its K1 check on the state it reached."""
+    t0 = time.perf_counter()
+    counts, states, cfg, params = _train_flagship(card)
+    check = check_on_env_state(card, "train state", states, cfg, params)
+    del states
+    _replay_agree(card, "dense route (K1)", {**FLAGSHIP_ENV}, 16)
+    _replay_agree(card, "pairs route (K1, K2, K3)",
+                  {**SWARM_ENV, "use_downwash": True}, 16)
+    _learner_agree(card)
+    _cli_twice(card)
+    print(f"[{card}] train phase: {time.perf_counter() - t0:.1f} s")
+    return counts, check
+
+
 KERNELS = {
     "K1": ("dynamics", "quadswarm_tpu_torch/csrc/dynamics_kernel.cu",
            "quadswarm_tpu/ops/pallas/dynamics_kernel.py:98"),
@@ -1169,19 +1618,22 @@ def kernel_records(checks: dict, launches: dict) -> list:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="build,kernels,agree,rollout,swarm,sim",
+    ap.add_argument("--phases",
+                    default="build,kernels,agree,rollout,swarm,sim,train",
                     help="comma-separated subset of build,kernels,agree,"
-                         "rollout,swarm,sim,profile,sweep (off by default: "
+                         "rollout,swarm,sim,train,profile,sweep (off by "
+                         "default: "
                          "profile, a torch.profiler breakdown of a rollout; "
                          "sweep, K1's and K2's wrappers by part, K3 by k)")
     ap.add_argument("--trace", default=None,
                     help="with the profile phase: write its Chrome trace "
                          "to this path")
     ap.add_argument("--profile_path", default="flagship",
-                    choices=("flagship", "swarm"),
+                    choices=("flagship", "swarm", "train"),
                     help="with the profile phase: the rollout to profile, "
                          "1024 x 8 (flagship) or 256 x 128 with the pair "
-                         "kernels (swarm)")
+                         "kernels (swarm); or train.sh's Trainer, rollout "
+                         "ticks with replay and minibatch steps (train)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -1225,6 +1677,11 @@ def main(argv=None) -> int:
             checks[kid].insert(0, check)
     if "sim" in phases:
         checks["K1"].append(phase_sim(card))
+    if "train" in phases:
+        train_counts, check = phase_train(card)
+        checks["K1"].insert(0, check)
+        # the main path first: a kernel's `launches` is its count there
+        launches = {"train-1024x8": train_counts, **launches}
     if "profile" in phases:
         phase_profile(card, args.trace, args.profile_path)
 

@@ -6,9 +6,13 @@ It imports torch and numpy only.  Entry points run on the CUDA device unless
 the caller passes `device="cpu"`; on CPU tensors every hand-written kernel
 runs its plain PyTorch version, on CUDA tensors it launches the kernel.
 
-Ported so far: the rollout path of the 8-drone mix run (policy forward plus
-the batched env step, with the fused dynamics kernel in
-`ops/kernels/dynamics_kernel.py` / `csrc/dynamics_kernel.cu`).
+Ported so far: the synchronous PPO training of the 8-drone mix run
+(`train.sh` through `python -m quadswarm_tpu_torch.training.train`): the
+policy, the batched env step with collision replay, GAE, the PPO update,
+checkpoints and metrics, with the fused dynamics kernel
+(`ops/kernels/dynamics_kernel.py` / `csrc/dynamics_kernel.cu`) on every
+tick; and the large-swarm env route with the pair kernels
+(`ops/kernels/swarm_interactions.py` / `csrc/swarm_interactions.cu`).
 """
 
 __version__ = "0.1.0"

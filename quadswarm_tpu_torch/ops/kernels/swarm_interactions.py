@@ -167,6 +167,10 @@ def swarm_interactions_plain(pos, hitbox, falloff, max_penalty):
     pen = torch.where((dist <= falloff) & ~eye, pen, torch.zeros_like(pen))
     masked = torch.where(eye, torch.full_like(dist, 1e30), dist)
     min_dist, partner = torch.min(masked, -1)       # first minimum
+    # Partner 0 where no distance of the row is below 1e30 (every other
+    # squared distance overflowing), as the kernel, which starts from
+    # (0, 1e30) and takes a strictly smaller distance only.
+    partner = torch.where(min_dist < 1e30, partner, torch.zeros_like(partner))
     return (torch.any((dist <= hitbox) & ~eye, -1), partner.to(torch.int32),
             torch.sum(pen, -1), min_dist)
 

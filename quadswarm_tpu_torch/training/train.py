@@ -1,0 +1,142 @@
+"""Training CLI: `python -m quadswarm_tpu_torch.training.train ...`
+
+Port of quadswarm_tpu/training/train.py, the synchronous PPO branch: it
+takes `train.sh`'s flags unchanged and trains on the CUDA device
+(`--device=cpu` runs the kernels' plain versions on the CPU).  It resumes
+from the experiment's latest checkpoint, logs windowed `perf/sps` and the
+episode stats every --log_every_iters iterations to `metrics.jsonl`, keeps
+a `best` checkpoint by the windowed mean of the episode `true_reward`, and
+saves every --save_every_sec seconds and at exit.
+
+Example (the 8-drone mix baseline):
+    python -m quadswarm_tpu_torch.training.train \\
+        --train_for_env_steps=1000000000 --num_envs=1024 --rollout=128 \\
+        --batch_size=1024 --quads_num_agents=8 --quads_mode=mix \\
+        --quads_neighbor_encoder_type=attention --quads_neighbor_visible_num=6 \\
+        --quads_neighbor_obs_type=pos_vel --quads_collision_reward=5.0 \\
+        --quads_collision_falloff_radius=4.0 --quads_use_downwash=True \\
+        --replay_buffer_sample_prob=0.75 --anneal_collision_steps=300000000
+"""
+from __future__ import annotations
+
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+
+def main(argv=None) -> int:
+    from quadswarm_tpu_torch.env.params import make_dynamics_params
+    from quadswarm_tpu_torch.parallel.ppo import Trainer
+    from quadswarm_tpu_torch.training.config import (
+        anneal_schedules_from_args, base_rew_coeff_from_args,
+        env_config_from_args, model_from_args, parse_swarm_cfg,
+        ppo_config_from_args, save_cfg,
+    )
+    from quadswarm_tpu_torch.utils.checkpoint import (
+        checkpoint_dir, latest_checkpoint, load_checkpoint, save_checkpoint,
+    )
+    from quadswarm_tpu_torch.utils.metrics import MetricLogger
+    from quadswarm_tpu_torch.utils.struct import resolve_device
+
+    args = parse_swarm_cfg(argv)
+    device = resolve_device(args.device)
+    exp_dir = os.path.join(args.train_dir, args.experiment)
+    save_cfg(args, exp_dir)
+
+    env_cfg = env_config_from_args(args)
+    torch.manual_seed(args.seed)
+    model = model_from_args(args, env_cfg, device=device)
+    trainer = Trainer(env_cfg, ppo_config_from_args(args), model,
+                      make_dynamics_params(dt=env_cfg.dt), seed=args.seed,
+                      anneal_schedules=anneal_schedules_from_args(args),
+                      base_rew_coeff=base_rew_coeff_from_args(args),
+                      device=device)
+    cp_dir = checkpoint_dir(args.train_dir, args.experiment)
+    cp = latest_checkpoint(cp_dir)
+    if cp is not None:
+        trainer.step, trainer.env_steps, trainer.norm_state = load_checkpoint(
+            cp, trainer.model, trainer.optimizer, extra=trainer.norm_state,
+            device=device)
+        print(f"resumed from {cp} at {trainer.env_steps} env steps",
+              flush=True)
+
+    def save(tag="checkpoint", keep=3):
+        save_checkpoint(cp_dir, trainer.model, trainer.optimizer, trainer.step,
+                        trainer.env_steps, keep=keep, tag=tag,
+                        extra=trainer.norm_state)
+
+    logger = MetricLogger(
+        exp_dir, use_wandb=args.with_wandb,
+        wandb_kwargs=dict(project=args.wandb_project, entity=args.wandb_user,
+                          group=args.wandb_group, name=args.experiment))
+    if args.debug_checks:
+        torch.autograd.set_detect_anomaly(True)
+    last_save = time.time()
+    it = 0
+    last_t, last_steps = time.time(), trainer.env_steps
+    profiler = None
+    # Best checkpoint: windowed mean of the episode true_reward.
+    best_objective = -float("inf")
+    recent_true_rewards: list[float] = []
+    try:
+        while trainer.env_steps < args.train_for_env_steps:
+            metrics, infos = trainer.iteration()
+            it += 1
+            if args.profile_dir and it == 1:
+                # from the second iteration on: the first holds the warm-up
+                profiler = torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU] + (
+                    [torch.profiler.ProfilerActivity.CUDA]
+                    if device.type == "cuda" else []))
+                profiler.start()
+            if profiler is not None and it == 1 + args.profile_iters:
+                profiler.stop()
+                _export_trace(profiler, args.profile_dir)
+                profiler = None
+            if it % args.log_every_iters == 0:
+                m = {k: float(v) for k, v in metrics.items()}
+                m.update(trainer.episode_stats(infos))
+                if "true_reward" in m:
+                    recent_true_rewards = (recent_true_rewards
+                                           + [m["true_reward"]])[-10:]
+                    objective = float(np.mean(recent_true_rewards))
+                    if (len(recent_true_rewards) >= 3
+                            and objective > best_objective):
+                        best_objective = objective
+                        save(tag="best", keep=1)
+                now = time.time()
+                # windowed: the first window absorbs the warm-up
+                m["perf/sps"] = ((trainer.env_steps - last_steps)
+                                 / max(now - last_t, 1e-9))
+                m["perf/rollout_s"] = trainer.seconds["rollout"]
+                m["perf/learner_s"] = trainer.seconds["learner"]
+                last_t, last_steps = now, trainer.env_steps
+                logger.log(trainer.env_steps, m)
+                print(f"steps={trainer.env_steps:,} "
+                      f"sps={m['perf/sps']:,.0f} "
+                      f"loss={m['loss']:.4f} rew={m['reward_mean']:.4f}",
+                      flush=True)
+            if time.time() - last_save > args.save_every_sec:
+                save()
+                last_save = time.time()
+    finally:
+        if profiler is not None:
+            profiler.stop()
+            _export_trace(profiler, args.profile_dir)
+        save()
+        logger.close()
+    return 0
+
+
+def _export_trace(profiler, profile_dir: str) -> None:
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, "trace.json")
+    profiler.export_chrome_trace(path)
+    print(f"profiler trace written to {path}", flush=True)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

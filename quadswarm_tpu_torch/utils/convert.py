@@ -15,11 +15,16 @@ import torch
 from quadswarm_tpu_torch.env.dynamics import DroneState
 from quadswarm_tpu_torch.env.multi import EnvState
 from quadswarm_tpu_torch.env.params import DynamicsParams
+from quadswarm_tpu_torch.env.replay import ReplayState
 from quadswarm_tpu_torch.env.reward import RewardCoeffs
 from quadswarm_tpu_torch.env.scenarios import ScenarioState
+from quadswarm_tpu_torch.parallel.normalize import (
+    NormalizerState, RunningMeanStd,
+)
 
 _NESTED = {"dyn": DroneState, "scenario": ScenarioState,
-           "rew_coeff": RewardCoeffs}
+           "rew_coeff": RewardCoeffs, "ep_checkpoints": EnvState,
+           "buffer": EnvState, "obs": RunningMeanStd, "ret": RunningMeanStd}
 
 
 def actor_critic_from_flax(tree: dict) -> dict:
@@ -70,7 +75,9 @@ def _build(cls, tree: dict, device):
             kwargs[f.name] = torch.from_numpy(
                 _seed_from_key(tree["scen_key"])).to(device)
         elif f.name in _NESTED:
-            kwargs[f.name] = _build(_NESTED[f.name], tree[f.name], device)
+            sub = tree.get(f.name)
+            kwargs[f.name] = None if sub is None else _build(
+                _NESTED[f.name], sub, device)
         else:
             kwargs[f.name] = _tensor(tree[f.name], device)
     return cls(**kwargs)
@@ -98,3 +105,15 @@ def dynamics_params_from_numpy(fields: dict) -> DynamicsParams:
     return DynamicsParams(**{
         f.name: torch.as_tensor(np.asarray(fields[f.name]))
         for f in dataclasses.fields(DynamicsParams)})
+
+
+def replay_state_from_numpy(tree: dict, device="cpu") -> ReplayState:
+    """A batched JAX ReplayState (nested dict of numpy arrays) -> the
+    port's; its rings become EnvStates with leaves (E, slots, ...)."""
+    return _build(ReplayState, tree, device)
+
+
+def norm_state_from_numpy(tree: dict, device="cpu") -> NormalizerState:
+    """A JAX NormalizerState (nested dict of numpy arrays; a normalizer that
+    is off is None or absent) -> the port's."""
+    return _build(NormalizerState, tree, device)

@@ -34,6 +34,7 @@ from quadswarm_tpu.env.params import make_dynamics_params as j_make_params
 from quadswarm_tpu.env.reward import RewardCoeffs as JRewardCoeffs
 from quadswarm_tpu.models import actor_critic as j_ac
 from quadswarm_tpu_torch.env import multi as t_multi
+from quadswarm_tpu_torch.env.replay import ReplayState, init_replay_state
 from quadswarm_tpu_torch.env.params import make_dynamics_params as t_make_params
 from quadswarm_tpu_torch.env.reward import RewardCoeffs
 from quadswarm_tpu_torch.models import actor_critic as t_ac
@@ -286,10 +287,13 @@ def test_collect_rollout_shapes_and_counts():
         3, E)
     for x in traj:
         assert torch.isfinite(x.float()).all()
-    with pytest.raises(NotImplementedError):
-        collect_rollout(cfg, params, model, PPOConfig(
-            rollout=1, replay_sample_prob=0.75), state, obs, gen,
-            RewardCoeffs(), replay_states=object())
+    # through collision replay: the replay state comes back, with its stats
+    rstate = init_replay_state(state)
+    _, _, rstate2, traj, _, infos = collect_rollout(
+        cfg, params, model, PPOConfig(rollout=2, replay_sample_prob=0.75),
+        state, obs, gen, RewardCoeffs(), replay_states=rstate)
+    assert isinstance(rstate2, ReplayState) and traj.obs.shape[0] == 2
+    assert infos["replay/replay_buffer_size"].shape == (2, E)
 
 
 def test_port_imports_no_jax():

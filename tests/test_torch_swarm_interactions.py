@@ -373,6 +373,26 @@ def test_swarm_interactions_small_fleet():
     np.testing.assert_array_equal(partner.numpy(), np.asarray(want[1]))
 
 
+# Every squared distance to another drone overflows float32 (3e19 m apart):
+# the JAX kernel starts each row from partner 0 and min_dist 1e30 and takes
+# a distance only if it is strictly smaller, so every row keeps (0, 1e30).
+OVERFLOW_POS = np.array([[0, 0, 0], [3e19, 0, 0], [-3e19, 0, 0], [0, 3e19, 0]],
+                        np.float32)
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_swarm_interactions_overflowing_distances_give_partner_zero(batched):
+    pos = np.stack([OVERFLOW_POS, OVERFLOW_POS[::-1]]) if batched \
+        else OVERFLOW_POS
+    got = t_si.swarm_interactions(_t(pos), 2.0, 4.0, 10.0)
+    want = j_si.swarm_interactions(jnp.asarray(pos), 2.0, 4.0, 10.0,
+                                   interpret=True)
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    np.testing.assert_array_equal(got[3].numpy(), np.asarray(want[3]))
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    assert not got[1].any() and bool((got[3] == 1e30).all())
+
+
 # --------------------------------------------------------------------------
 # Refusals and the launch counters
 # --------------------------------------------------------------------------
