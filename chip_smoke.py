@@ -37,7 +37,20 @@ Phases, each raising on failure:
      `batched_replay_step` on the card against the CPU on the dense route
      (16 x 8) and the pairs route (16 x 128), every branch fired; the
      learner on the card against the CPU; the train CLI with train.sh's
-     flags for 2 iterations and a resume for a third.
+     flags for 2 iterations and a resume for a third;
+  8. obst: train_local_obst.sh's training, a `Trainer` built from its flags
+     (1024 envs x 8 on the 8 x 8 obstacle grid, the SDF observation and the
+     obstacle encoder, rollout 128, batch 1024, replay 0.75) for 2
+     iterations with the same lines plus the obstacle hits; a reset tick of
+     every env with obstacles, timed; `batched_replay_step` with obstacles
+     on the card against the CPU (16 x 8); K1 on the state it reached;
+  9. eval: the eval CLI's `evaluate` with train.sh's flags plus
+     `--eval_envs=32 --quads_mode=static_diff_goal --max_num_episodes=32
+     --load_checkpoint_kind=best`, from a `best` checkpoint the train CLI
+     wrote at a small width, each round with its wall time, ticks/s,
+     launches, syncs and the success and deadlock rates; then one round
+     with train_local_obst.sh's flags from the obst phase's checkpoint (or
+     fresh weights); K1 on each round's final state.
 
     python3 chip_smoke.py --phases build,profile --trace out/trace.json
     python3 chip_smoke.py --phases build,profile --profile_path swarm
@@ -636,18 +649,22 @@ SWARM_ENVS = 256
 STEP_TOL = dict(rtol=2e-4, atol=2e-5)
 
 
-def _draws(e: int, n: int, gen) -> dict:
-    """Every random draw of one env tick, as batched_env_step takes them."""
+def _draws(e: int, n: int, gen, obstacles: bool = False) -> dict:
+    """Every random draw of one env tick, as batched_env_step takes them
+    (with `obstacles`, the obstacle response's too)."""
     import torch
     u = lambda *s: torch.rand((e, n) + s, generator=gen)
     g = lambda *s: torch.randn((e, n) + s, generator=gen)
-    return {"ou": g(4), "yaw": u() * (2 * math.pi) - math.pi,
-            "downwash": {"acc": u(1), "omega": u(1), "axis": u(3),
-                         "dir": u(3)},
-            "drone_normals": g(3, 3, 3), "drone_uniforms": u(6),
-            "wall": u(11), "ceiling": u(10),
-            "sensor": {"pos_n": g(3), "vel_n": g(3), "omega_n": g(3),
-                       "acc_n": g(3), "acc_dyn_n": g(3)}}
+    d = {"ou": g(4), "yaw": u() * (2 * math.pi) - math.pi,
+         "downwash": {"acc": u(1), "omega": u(1), "axis": u(3),
+                      "dir": u(3)},
+         "drone_normals": g(3, 3, 3), "drone_uniforms": u(6),
+         "wall": u(11), "ceiling": u(10),
+         "sensor": {"pos_n": g(3), "vel_n": g(3), "omega_n": g(3),
+                    "acc_n": g(3), "acc_dyn_n": g(3)}}
+    if obstacles:
+        d.update(obst_normals=g(3, 2, 3), obst_uniforms=u(5))
+    return d
 
 
 def _to_cuda(x):
@@ -1173,11 +1190,12 @@ TRAIN_ITERS = 3
 TRAIN_ITER_STEPS = 128 * 1024 * 8
 
 
-def train_sh_flags() -> list:
-    """train.sh's flags, read from the script beside this one."""
+def train_sh_flags(script: str = "train.sh") -> list:
+    """A training script's flags (train.sh's, or train_local_obst.sh's),
+    read from the script beside this one."""
     import shlex
     from pathlib import Path
-    text = (Path(__file__).resolve().parent / "train.sh").read_text()
+    text = (Path(__file__).resolve().parent / script).read_text()
     line = next(ln for ln in text.replace("\\\n", " ").splitlines()
                 if "training.train" in ln)
     words = shlex.split(line)
@@ -1201,6 +1219,7 @@ class SyncCounter:
         return self
 
     def __exit__(self, *exc):
+        import collections
         import os
         import torch
         torch.cuda.set_sync_debug_mode(0)
@@ -1212,17 +1231,21 @@ class SyncCounter:
         self.implicit = len(syncs) - self.explicit
         self.where = sorted({f"{r.filename}:{r.lineno}" for r in syncs
                              if not r.filename.endswith(explicit)})
+        self.by_site = collections.Counter(
+            f"{os.path.basename(r.filename)}:{r.lineno}" for r in syncs
+            if not r.filename.endswith(explicit))
         return False
 
 
-def _flagship_trainer(device="cuda"):
-    """A Trainer at train.sh's settings, built as the CLI builds it."""
+def _flagship_trainer(device="cuda", script: str = "train.sh"):
+    """A Trainer at a training script's settings (train.sh's by default),
+    built as the CLI builds it."""
     import torch
     from quadswarm_tpu_torch.env.params import make_dynamics_params
     from quadswarm_tpu_torch.parallel.ppo import Trainer
     from quadswarm_tpu_torch.training import config
 
-    args = config.parse_swarm_cfg(train_sh_flags())
+    args = config.parse_swarm_cfg(train_sh_flags(script))
     env_cfg = config.env_config_from_args(args)
     ppo = config.ppo_config_from_args(args)
     torch.manual_seed(args.seed)
@@ -1302,12 +1325,12 @@ def _train_flagship(card: str) -> tuple:
     return total, trainer.env_states, cfg, trainer.dyn_params
 
 
-def _replay_draws(e: int, n: int, gen) -> dict:
+def _replay_draws(e: int, n: int, gen, obstacles: bool = False) -> dict:
     """A replay tick's draws: the env tick's, the replayed observation's
     sensor noise and the replay uniforms (each sample one below 0.5, so
     every eligible episode end replays at sample_prob 0.75)."""
     import torch
-    d = _draws(e, n, gen)
+    d = _draws(e, n, gen, obstacles)
     d["replay_sensor"] = {k: torch.randn((e, n, 3), generator=gen)
                           for k in d["sensor"]}
     d["replay_u"] = torch.rand((e,), generator=gen) * 0.5
@@ -1334,14 +1357,16 @@ def _close_trees(label: str, pairs, tol) -> float:
 
 
 def _replay_agree(card: str, label: str, env_kw: dict, e: int,
-                  ticks: int = 20) -> dict:
+                  ticks: int = 20, reward: dict = FLAGSHIP_REWARD) -> dict:
     """batched_replay_step on the card against the CPU for `ticks` ticks,
     both from the CPU's state and replay state each tick, with the same
     draws.  The start is prepared so that every branch fires: all envs can
     fly and hold 3 checkpoints; the first half of them is 5 ticks or less
     from a checkpoint tick and has two drones inside the hitbox; the second
     half ends its episode within 13 ticks, half of those with a buffer to
-    replay, half with an empty one (a fresh reset)."""
+    replay, half with an empty one (a fresh reset).  With obstacles, drone
+    2 of every env of the first half sits on an active obstacle, and an
+    obstacle hit must fire too."""
     import torch
     from quadswarm_tpu_torch.env.multi import EnvConfig, env_reset
     from quadswarm_tpu_torch.env.params import make_dynamics_params
@@ -1357,7 +1382,7 @@ def _replay_agree(card: str, label: str, env_kw: dict, e: int,
     gen_gpu = torch.Generator("cuda").manual_seed(21)
     draw_gen = torch.Generator().manual_seed(22)
     states, _ = env_reset(cfg, params, gen_cpu, e, device="cpu",
-                          rew_coeff=RewardCoeffs(**FLAGSHIP_REWARD))
+                          rew_coeff=RewardCoeffs(**reward))
     half = e // 2
     idx = torch.arange(e, dtype=torch.int32)
     tick = torch.where(idx < half, 1445 + idx % 5,
@@ -1365,6 +1390,10 @@ def _replay_agree(card: str, label: str, env_kw: dict, e: int,
     pos = states.dyn.pos.clone()
     pos[..., 2] = pos[..., 2].clamp(min=1.5)
     pos[:half, 1] = pos[:half, 0] + torch.tensor([0.05, 0.0, 0.0])
+    if cfg.use_obstacles:
+        first = torch.argmax(states.obst_active[:half].to(torch.uint8), -1)
+        pos[:half, 2, :2] = states.obst_pos[torch.arange(half), first, :2] \
+            + 0.1
     states = states.replace(tick=tick, dyn=states.dyn.replace(pos=pos))
     rstates = init_replay_state(states)
     zi = torch.zeros(e, dtype=torch.int32)
@@ -1374,11 +1403,13 @@ def _replay_agree(card: str, label: str, env_kw: dict, e: int,
         buffer_count=torch.where(filled, 3, 0).to(torch.int32),
         buffer_idx=torch.where(filled, 3, 0).to(torch.int32))
     fired = dict(checkpoint=0, collision_write=0, replay=0, fresh_reset=0)
+    if cfg.use_obstacles:
+        fired["obstacle_hit"] = 0
     _reset_counts()
     worst = 0.0
     for _ in range(ticks):
         actions = torch.rand((e, n, 4), generator=draw_gen) * 2 - 1
-        draws = _replay_draws(e, n, draw_gen)
+        draws = _replay_draws(e, n, draw_gen, cfg.use_obstacles)
         s_gpu, r_gpu = _to_cuda(states), _to_cuda(rstates)
         cpu = batched_replay_step(cfg, params, 0.75, states, rstates,
                                   actions, gen_cpu, draws)
@@ -1395,6 +1426,9 @@ def _replay_agree(card: str, label: str, env_kw: dict, e: int,
         fired["replay"] += int((nr.replayed_events
                                 > rstates.replayed_events).sum())
         fired["fresh_reset"] += int(fresh.sum())
+        if cfg.use_obstacles:
+            fired["obstacle_hit"] += int(
+                (ns.prev_obst_hits & ~states.prev_obst_hits).sum())
         pairs = [(f"replay.{a}", g, c) for (a, g), (_, c)
                  in zip(leaves(gpu[1]), leaves(nr))]
         pairs += [(f"state.{a}", g[keep.cuda()], c[keep]) for (a, g), (_, c)
@@ -1506,36 +1540,39 @@ def _learner_agree(card: str) -> None:
         raise AssertionError(f"learner: parameters differ by {worst}")
 
 
-def _cli_twice(card: str) -> None:
-    """The train CLI with train.sh's flags for 2 iterations into a
-    temporary directory, then again for a third: it resumes, and env_steps
-    go on."""
+def _train_cli(flags: list, timeout: int = 600):
+    """The train CLI in its own process; returns (its stdout, seconds)."""
     import os
-    import tempfile
     from pathlib import Path
 
     root = Path(__file__).resolve().parent
     env = {**os.environ, "PYTHONPATH": str(root)}
-    with tempfile.TemporaryDirectory() as tmp:
-        flags = train_sh_flags() + [f"--train_dir={tmp}", "--experiment=smoke",
-                                    "--log_every_iters=1"]
-        outs = []
-        for iters in (2, 3):
-            t0 = time.perf_counter()
-            out = subprocess.run(
-                [sys.executable, "-m", "quadswarm_tpu_torch.training.train",
-                 *flags, f"--train_for_env_steps={iters * TRAIN_ITER_STEPS}"],
-                cwd=root, env=env, capture_output=True, text=True,
-                timeout=600)
-            if out.returncode:
-                raise AssertionError(f"train CLI exited {out.returncode}: "
-                                     f"{out.stderr[-2000:]}")
-            outs.append((out.stdout, time.perf_counter() - t0))
-        exp = Path(tmp) / "smoke"
-        config = json.loads((exp / "config.json").read_text())
-        lines = [json.loads(x) for x in
-                 (exp / "metrics.jsonl").read_text().splitlines()]
-        cps = sorted(p.name for p in (exp / "checkpoint_p0").iterdir())
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "quadswarm_tpu_torch.training.train", *flags],
+        cwd=root, env=env, capture_output=True, text=True, timeout=timeout)
+    if out.returncode:
+        raise AssertionError(f"train CLI exited {out.returncode}: "
+                             f"{out.stderr[-2000:]}")
+    return out.stdout, time.perf_counter() - t0
+
+
+def _cli_twice(card: str, train_dir: str) -> None:
+    """The train CLI with train.sh's flags for 2 iterations into
+    `train_dir`, then again for a third: it resumes, and env_steps go
+    on."""
+    from pathlib import Path
+
+    flags = train_sh_flags() + [f"--train_dir={train_dir}",
+                                "--experiment=smoke", "--log_every_iters=1"]
+    outs = [_train_cli(flags + [
+        f"--train_for_env_steps={iters * TRAIN_ITER_STEPS}"])
+        for iters in (2, 3)]
+    exp = Path(train_dir) / "smoke"
+    config = json.loads((exp / "config.json").read_text())
+    lines = [json.loads(x) for x in
+             (exp / "metrics.jsonl").read_text().splitlines()]
+    cps = sorted(p.name for p in (exp / "checkpoint_p0").iterdir())
     steps = [r["env_steps"] for r in lines]
     if config["device"] != "cuda" or steps != [
             i * TRAIN_ITER_STEPS for i in (1, 2, 3)]:
@@ -1552,11 +1589,12 @@ def _cli_twice(card: str) -> None:
           f"{cps}")
 
 
-def phase_train(card: str) -> tuple:
+def phase_train(card: str, train_dir: str) -> tuple:
     """The training path: the flagship Trainer (the main path), collision
     replay on the card against the CPU on both routes, the learner on the
-    card against the CPU, and the CLI with a resume.  Returns the main
-    path's launch counts and its K1 check on the state it reached."""
+    card against the CPU, and the CLI with a resume into `train_dir`.
+    Returns the main path's launch counts and its K1 check on the state it
+    reached."""
     t0 = time.perf_counter()
     counts, states, cfg, params = _train_flagship(card)
     check = check_on_env_state(card, "train state", states, cfg, params)
@@ -1565,9 +1603,244 @@ def phase_train(card: str) -> tuple:
     _replay_agree(card, "pairs route (K1, K2, K3)",
                   {**SWARM_ENV, "use_downwash": True}, 16)
     _learner_agree(card)
-    _cli_twice(card)
+    _cli_twice(card, train_dir)
     print(f"[{card}] train phase: {time.perf_counter() - t0:.1f} s")
     return counts, check
+
+
+# ---------------------------------------------------------------------------
+# The obstacle path (train_local_obst.sh)
+# ---------------------------------------------------------------------------
+
+OBST_ITERS = 2
+# train_local_obst.sh's env: 8 drones, the obstacle mix on the 8 x 8 grid
+# at density 0.2 (12 obstacles of size 0.6), the floor observation, 2
+# visible neighbours, the 9-point SDF, downwash.
+OBST_ENV = dict(num_agents=8, quads_mode="mix", ep_time=15.0,
+                obs_repr="xyz_vxyz_R_omega_floor", neighbor_obs_type="pos_vel",
+                neighbor_visible_num=2, collision_hitbox_radius=2.0,
+                collision_falloff_radius=4.0, use_obstacles=True,
+                obst_spawn_area=(8.0, 8.0), obst_density=0.2, obst_size=0.6,
+                use_downwash=True)
+OBST_REWARD = dict(quadcol_bin=5.0, quadcol_bin_smooth_max=4.0,
+                   quadcol_bin_obst=5.0)
+
+
+def _reset_tick(card: str, trainer) -> None:
+    """A replay tick on which every env's episode ends and starts afresh
+    (as all of the run's envs do together every 1501 ticks): its host time
+    beside an ordinary tick's, and its device-to-host syncs."""
+    import torch
+    from quadswarm_tpu_torch.env.replay import batched_replay_step
+
+    cfg, params = trainer.env_cfg, trainer.dyn_params
+    e, n = trainer.ppo_cfg.num_envs, cfg.num_agents
+    actions = torch.zeros((e, n, 4), device="cuda")
+    ending = trainer.env_states.replace(
+        tick=torch.full_like(trainer.env_states.tick, cfg.ep_len))
+    times = {}
+    for label, states in (("ordinary", trainer.env_states),
+                          ("reset", ending), ("ordinary", trainer.env_states),
+                          ("reset", ending)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with SyncCounter() as syncs:
+            out = batched_replay_step(cfg, params, 0.75, states,
+                                      trainer.replay_states, actions,
+                                      trainer.gen)
+            torch.cuda.synchronize()
+        times[label] = (time.perf_counter() - t0, syncs.implicit)
+    if not bool((out[0].tick == 0).all()):
+        raise AssertionError("the reset tick did not reset every env")
+    _finite("reset tick obs", out[2])
+    print(f"[{card}] obstacle reset tick, all {e} envs x {n}: "
+          f"{times['reset'][0] * 1e3:.2f} ms ({times['reset'][1]} implicit "
+          f"syncs), an ordinary tick {times['ordinary'][0] * 1e3:.2f} ms "
+          f"({times['ordinary'][1]} syncs); second of two calls each")
+
+
+def phase_obst(card: str, train_dir: str) -> tuple:
+    """train_local_obst.sh's training path: OBST_ITERS iterations of its
+    Trainer, a reset tick with obstacles, the obstacle replay step on the
+    card against the CPU, and K1 on the state the run reached.  Saves the
+    trainer's checkpoint into `train_dir` for the eval phase.  Returns the
+    launch counts of the iterations and the K1 check."""
+    import torch
+    from quadswarm_tpu_torch.training import config as C
+    from quadswarm_tpu_torch.utils.checkpoint import (
+        checkpoint_dir, save_checkpoint)
+
+    t0_phase = time.perf_counter()
+    flags = train_sh_flags("train_local_obst.sh")
+    args = C.parse_swarm_cfg(flags)
+    trainer = _flagship_trainer(script="train_local_obst.sh")
+    ppo, cfg = trainer.ppo_cfg, trainer.env_cfg
+    e, n, t = ppo.num_envs, cfg.num_agents, ppo.rollout
+    enc = trainer.model.actor_encoder
+    want_env = {k: getattr(cfg, k) for k in OBST_ENV}
+    if want_env != OBST_ENV or (e, t, ppo.batch_size,
+                                ppo.replay_sample_prob, cfg.obs_dim) != (
+            1024, 128, 1024, 0.75, 40) or enc.obstacle_encoder is None \
+            or enc.neighbor_encoder is not None:
+        raise AssertionError("the trainer is not at train_local_obst.sh's "
+                             f"settings: {want_env}")
+    print(f"[{card}] obst: train_local_obst.sh's Trainer, weights from seed "
+          f"{args.seed} (torch.manual_seed), {int(trainer.env_states.obst_active.sum(-1).float().mean())} "
+          f"obstacles an env")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    total = {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+    hits = 0
+    for it in range(OBST_ITERS):
+        before = [p.detach().clone() for p in trainer.model.parameters()]
+        _reset_counts()
+        t0 = time.perf_counter()
+        with SyncCounter() as syncs:
+            metrics, infos = trainer.iteration()
+        wall = time.perf_counter() - t0
+        counts = _read_counts()
+        for kid in total:
+            total[kid] += counts[kid]
+        if counts != {"K1": t, "K2": 0, "K3": 0, "K4": 0}:
+            raise AssertionError(f"obst iteration {it}: launches {counts}, "
+                                 f"expected K1 {t}")
+        m = {k: float(v) for k, v in metrics.items()}
+        for k in ("loss", "pg_loss", "v_loss", "entropy", "approx_kl"):
+            if not math.isfinite(m[k]):
+                raise AssertionError(f"obst iteration {it}: {k} = {m[k]}")
+        changed = max(float((p.detach() - b).abs().max())
+                      for p, b in zip(trainer.model.parameters(), before))
+        if not changed > 0:
+            raise AssertionError(f"obst iteration {it}: the parameters did "
+                                 "not change")
+        if syncs.implicit != t:
+            raise AssertionError(f"obst iteration {it}: {syncs.implicit} "
+                                 f"syncs in {t} ticks, at {syncs.where}")
+        # no episode ends within these ticks: the counters hold every hit
+        hits = int(infos["num_collisions_obst_quad"][-1].sum())
+        sec = trainer.seconds
+        print(f"[{card}] obst iteration {it} (1024x8 x 128, batch 1024, "
+              f"replay 0.75, obstacles 8x8 at 0.2): {wall:.3f} s = rollout "
+              f"{sec['rollout']:.3f} s + learner {sec['learner']:.3f} s; "
+              f"{e * n * t / wall:,.0f} agent-steps/s; loss {m['loss']:.5g} "
+              f"pg_loss {m['pg_loss']:.5g} v_loss {m['v_loss']:.5g}; "
+              f"parameters moved up to {changed:.3g}; K1 launches "
+              f"{counts['K1']}; {syncs.implicit} device-to-host syncs "
+              f"({syncs.implicit / t:.3f} per tick; {syncs.explicit} "
+              f"explicit); peak allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**20:,.0f} MiB; "
+              f"obstacle hits so far {hits}")
+    if hits <= 0:
+        raise AssertionError("no obstacle hit in the obst iterations")
+    exp = f"{train_dir}/obst"
+    C.save_cfg(args, exp)
+    save_checkpoint(checkpoint_dir(train_dir, "obst"), trainer.model,
+                    trainer.optimizer, trainer.step, trainer.env_steps,
+                    extra=trainer.norm_state)
+    check = check_on_env_state(card, "obstacle train state",
+                               trainer.env_states, cfg, trainer.dyn_params)
+    _reset_tick(card, trainer)
+    del trainer
+    _replay_agree(card, "obstacle route (K1)", OBST_ENV, 16,
+                  reward=OBST_REWARD)
+    print(f"[{card}] obst phase: {time.perf_counter() - t0_phase:.1f} s")
+    return total, check
+
+
+# ---------------------------------------------------------------------------
+# The eval CLI (train.sh's quality protocol)
+# ---------------------------------------------------------------------------
+
+EVAL_ENVS = 32
+EVAL_FLAGS = [f"--eval_envs={EVAL_ENVS}", f"--max_num_episodes={EVAL_ENVS}"]
+
+
+def _eval_round(card: str, label: str, argv: list) -> tuple:
+    """The eval CLI's `evaluate` over `argv`, counted and timed: one round
+    of EVAL_ENVS full episodes.  Returns (launch counts, the K1 check on the
+    round's final state)."""
+    import contextlib
+    import io
+    import torch
+    from quadswarm_tpu_torch.env.params import make_dynamics_params
+    from quadswarm_tpu_torch.training import config as C
+    from quadswarm_tpu_torch.training import enjoy
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        args = enjoy.load_args(argv)
+    cfg = C.env_config_from_args(args)
+    ticks = cfg.ep_len + 1
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    with SyncCounter() as syncs, contextlib.redirect_stdout(out):
+        result = enjoy.evaluate(args)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _read_counts()
+    print("\n".join(f"[{card}] enjoy> {ln}" for ln in
+                    out.getvalue().splitlines()
+                    if not ln.startswith("  ") or "metric/" in ln
+                    or "episode_reward" in ln))
+    stats = result.stats
+    if len(result.episodes) != EVAL_ENVS or stats["episode_done"] != 1.0:
+        raise AssertionError(f"{label}: {len(result.episodes)} episodes, "
+                             f"episode_done {stats['episode_done']}")
+    if not all(math.isfinite(v) for ep in result.episodes
+               for v in ep.values()):
+        raise AssertionError(f"{label}: a stat is not finite")
+    if counts != {"K1": ticks, "K2": 0, "K3": 0, "K4": 0}:
+        raise AssertionError(f"{label}: launches {counts} in {ticks} ticks")
+    rnd = result.round_seconds[0]
+    print(f"[{card}] eval {label}: {len(result.episodes)} episodes of "
+          f"{ticks} ticks ({EVAL_ENVS}x{cfg.num_agents}); round "
+          f"{rnd:.3f} s, {ticks / rnd:,.1f} ticks/s, "
+          f"{ticks * EVAL_ENVS * cfg.num_agents / rnd:,.0f} agent-steps/s; "
+          f"call {wall:.3f} s; K1 launches {counts['K1']}; "
+          f"{syncs.implicit} implicit device-to-host syncs in the call "
+          f"({syncs.implicit / ticks:.4f} per tick; by site "
+          f"{dict(syncs.by_site.most_common(6))}); "
+          f"agent_success_rate {stats['metric/agent_success_rate']:.4f}, "
+          f"agent_deadlock_rate {stats['metric/agent_deadlock_rate']:.4f} "
+          f"(an under-trained policy)")
+    check = check_on_env_state(card, f"eval {label} final state",
+                               result.states, cfg,
+                               make_dynamics_params(dt=cfg.dt))
+    return counts, check
+
+
+def phase_eval(card: str, train_dir: str) -> tuple:
+    """train.sh's quality protocol through the eval CLI, from a `best`
+    checkpoint the train CLI writes at a small width (64 envs, 1 s
+    episodes, so that episodes end and a best is kept); then one round of
+    train_local_obst.sh's configuration from the obst phase's checkpoint
+    (fresh weights if that phase did not run).  Returns the launch counts
+    and K1 checks of both."""
+    from pathlib import Path
+
+    t0 = time.perf_counter()
+    iters = 4
+    out, secs = _train_cli(train_sh_flags() + [
+        f"--train_dir={train_dir}", "--experiment=eval_src",
+        "--num_envs=64", "--quads_episode_duration=1.0",
+        "--log_every_iters=1", f"--train_for_env_steps={iters * 128 * 64 * 8}"])
+    cps = sorted(p.name for p in
+                 (Path(train_dir) / "eval_src" / "checkpoint_p0").iterdir())
+    if not any(c.startswith("best_") for c in cps):
+        raise AssertionError(f"the train CLI kept no best checkpoint: {cps}")
+    print(f"[{card}] eval: train CLI at 64 envs x 8, 1 s episodes, {iters} "
+          f"iterations in {secs:.1f} s: {cps}")
+    flagship = _eval_round(card, "train.sh static_diff_goal", train_sh_flags()
+                           + [f"--train_dir={train_dir}",
+                              "--experiment=eval_src",
+                              "--quads_mode=static_diff_goal",
+                              "--load_checkpoint_kind=best", *EVAL_FLAGS])
+    obst = _eval_round(card, "train_local_obst.sh", train_sh_flags(
+        "train_local_obst.sh") + [f"--train_dir={train_dir}",
+                                  "--experiment=obst", *EVAL_FLAGS])
+    print(f"[{card}] eval phase: {time.perf_counter() - t0:.1f} s")
+    return flagship, obst
 
 
 KERNELS = {
@@ -1619,9 +1892,11 @@ def kernel_records(checks: dict, launches: dict) -> list:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="build,kernels,agree,rollout,swarm,sim,train",
+                    default="build,kernels,agree,rollout,swarm,sim,train,obst,"
+                            "eval",
                     help="comma-separated subset of build,kernels,agree,"
-                         "rollout,swarm,sim,train,profile,sweep (off by "
+                         "rollout,swarm,sim,train,obst,eval,profile,sweep "
+                         "(off by "
                          "default: "
                          "profile, a torch.profiler breakdown of a rollout; "
                          "sweep, K1's and K2's wrappers by part, K3 by k)")
@@ -1677,11 +1952,23 @@ def main(argv=None) -> int:
             checks[kid].insert(0, check)
     if "sim" in phases:
         checks["K1"].append(phase_sim(card))
+    import tempfile
+    workdir = tempfile.TemporaryDirectory()
+    train_dir = workdir.name
     if "train" in phases:
-        train_counts, check = phase_train(card)
+        train_counts, check = phase_train(card, train_dir)
         checks["K1"].insert(0, check)
         # the main path first: a kernel's `launches` is its count there
         launches = {"train-1024x8": train_counts, **launches}
+    if "obst" in phases:
+        launches["train-obst-1024x8"], check = phase_obst(card, train_dir)
+        checks["K1"].append(check)
+    if "eval" in phases:
+        for path, (counts, check) in zip(
+                ("eval-32x8", "eval-obst-32x8"), phase_eval(card, train_dir)):
+            launches[path] = counts
+            checks["K1"].append(check)
+    workdir.cleanup()
     if "profile" in phases:
         phase_profile(card, args.trace, args.profile_path)
 

@@ -1,7 +1,7 @@
 """Drone-drone and room collision detection and response.
 
-Port of quadswarm_tpu/env/collisions.py (the obstacle response comes
-later).  Functions take (..., N, 3) inputs with any leading env axes.
+Port of quadswarm_tpu/env/collisions.py.  Functions take (..., N, 3)
+inputs with any leading env axes.
 `drone_collision_response` derives each drone's response partner from the
 dense new-pair mask; `drone_collision_response_indexed` takes it as the
 pair kernel emits it (ops/kernels/swarm_interactions.py::pair_collisions).
@@ -14,9 +14,11 @@ draws them from the caller's generator when they are absent.
     pair's lower index.  The JAX package derives them from the pair id, so a
     drone with two new partners in one tick can share its row with another
     pair here; each pair's momentum pairing still holds.
+  obstacle response: `normals` (..., N, 3, 2, 3) standard normals (three
+    noise attempts of two terms) and `uniforms` (..., N, 5).
   wall response: `uniforms` (..., N, 11); ceiling response (..., N, 10).
-`set_response_tape` installs recorded drone-response draws, like the JAX
-package's seam of the same name.
+`set_response_tape` installs recorded drone- and obstacle-response draws,
+like the JAX package's seam of the same name.
 """
 from __future__ import annotations
 
@@ -31,8 +33,10 @@ _RESPONSE_TAPE: dict | None = None
 
 
 def set_response_tape(tape: dict | None) -> None:
-    """Install (or clear) recorded drone-response draws: 'drone_normals'
-    (..., N, 3, 3, 3) and 'drone_uniforms' (..., N, 6).  Only tests set it."""
+    """Install (or clear) recorded response draws: 'drone_normals'
+    (..., N, 3, 3, 3) and 'drone_uniforms' (..., N, 6); 'obst_normals'
+    (..., N, 3, 2, 3) and 'obst_uniforms' (..., N, 5).  Only tests set
+    it."""
     global _RESPONSE_TAPE
     _RESPONSE_TAPE = tape
 
@@ -100,11 +104,9 @@ def drone_collision_response_indexed(pos, vel, omega, active, partner,
     vn_b = torch.sum(vel_b * coll_norm, -1)
     vel_change = (vn_b - vn_a)[..., None] * coll_norm
 
-    if _RESPONSE_TAPE is not None and normals is None:
-        normals = torch.as_tensor(_RESPONSE_TAPE["drone_normals"], dtype=dtype,
-                                  device=pos.device)
-        uniforms = torch.as_tensor(_RESPONSE_TAPE["drone_uniforms"],
-                                   dtype=dtype, device=pos.device)
+    if normals is None:
+        normals = _taped("drone_normals", vel)
+        uniforms = _taped("drone_uniforms", vel)
     if normals is None:
         # One row per drone; a pair reads the row of its lower index.
         lo = torch.minimum(idx.expand(partner.shape), partner)
@@ -149,6 +151,62 @@ def drone_collision_response_indexed(pos, vel, omega, active, partner,
     omega_new = omega + torch.where(is_a, kick, -kick)
     act = active[..., None]
     return (torch.where(act, new_vel, vel), torch.where(act, omega_new, omega))
+
+
+def _taped(name: str, like: torch.Tensor):
+    if _RESPONSE_TAPE is None or name not in _RESPONSE_TAPE:
+        return None
+    return torch.as_tensor(_RESPONSE_TAPE[name], dtype=like.dtype,
+                           device=like.device)
+
+
+def obstacle_collision_response(pos, vel, omega, obstacle_pos, obstacle_size,
+                                hit_mask, gen: torch.Generator | None = None,
+                                normals=None, uniforms=None):
+    """Reflect the velocity of each hitting drone off the vertical cylinder
+    it hit, with directional noise and a random omega kick.
+
+    obstacle_pos (..., N, 3): the position of the obstacle each drone hit;
+    obstacle_size broadcasts to (..., N); hit_mask (..., N) bool."""
+    if normals is None:
+        normals = _taped("obst_normals", vel)
+        uniforms = _taped("obst_uniforms", vel)
+    if normals is None:
+        normals = torch.randn(pos.shape[:-1] + (3, 2, 3), generator=gen,
+                              dtype=vel.dtype, device=vel.device)
+    if uniforms is None:
+        uniforms = torch.rand(pos.shape[:-1] + (5,), generator=gen,
+                              dtype=vel.dtype, device=vel.device)
+    rel = pos - obstacle_pos
+    coll_norm = _safe_unit(torch.cat([rel[..., :2],
+                                      torch.zeros_like(rel[..., 2:])], -1))
+    vel_magn = _norm(vel)
+    new_vel = vel_magn * coll_norm
+    # Three noise attempts: the first that leaves the obstacle, else none.
+    # normals (..., N, attempt, [large, small], xyz)
+    cand = 0.1 * normals[..., 0, :] + 0.05 * normals[..., 1, :]
+    valid = torch.sum((new_vel[..., None, :] + cand)
+                      * coll_norm[..., None, :], -1) > 0
+    pick = torch.argmax(valid.to(torch.uint8), -1)
+    first = torch.gather(cand, -2, pick[..., None, None].expand(
+        cand.shape[:-2] + (1, 3)))[..., 0, :]
+    noise = torch.where(torch.any(valid, -1)[..., None], first,
+                        torch.zeros_like(first))
+
+    # Inside the cylinder the speed does not decay.
+    inside = torch.linalg.vector_norm(rel, dim=-1) < obstacle_size / 2
+    shift = new_vel - vel + noise
+    decay = 0.2 + 0.6 * uniforms[..., 0]
+    vel_hit = vel + shift
+    hit_mag = _norm(vel_hit)
+    direction = vel_hit / torch.where(hit_mag == 0.0, hit_mag + EPS, hit_mag)
+    speed = torch.where(inside, hit_mag[..., 0], hit_mag[..., 0] * decay)
+    vel_new = direction * torch.minimum(speed, vel_magn[..., 0])[..., None]
+    kick_dir = _safe_unit(2.0 * uniforms[..., 1:4] - 1.0)
+    omega_new = omega + kick_dir * (
+        math.pi * (0.5 + 0.5 * uniforms[..., 4]))[..., None]
+    hit = hit_mask[..., None]
+    return (torch.where(hit, vel_new, vel), torch.where(hit, omega_new, omega))
 
 
 def _room_kick(omega, u, hit):

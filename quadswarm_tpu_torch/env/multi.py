@@ -4,8 +4,9 @@ Port of quadswarm_tpu/env/multi.py.  `env_reset` makes E fresh envs;
 `batched_env_step` advances them one control tick:
 
     scenario step -> control + dynamics (fused kernel K1) -> per-drone
-    reward -> drone/room collisions -> collision rewards -> downwash and
-    collision responses -> observations -> episode metrics -> auto-reset
+    reward -> drone/obstacle/room collisions -> collision rewards ->
+    downwash and collision responses -> observations -> episode metrics ->
+    auto-reset
 
 With `EnvConfig.use_pallas_pairs` (the large-swarm path; the flag keeps the
 JAX package's name) the collision stage runs the pair kernel K2, which
@@ -18,9 +19,14 @@ env axis E first and the agent axis N second.  The dynamics of the whole
 fleet run in one launch of `ops/kernels/dynamics_kernel.py` on CUDA
 tensors, and through its plain version on CPU tensors.
 
-Supported so far: shared (non-per-drone) params, float32, raw control, no
-obstacles, and the scenario modes of the multi-drone mix.  Anything else
-raises NotImplementedError.
+With `EnvConfig.use_obstacles` every env holds an obstacle grid
+(`env/obstacles.py`): its drones observe a 9-point SDF patch, hit the
+cylinders and bounce off them, and the obstacle mix's scenarios spawn them
+on free cells.
+
+Supported so far: shared (non-per-drone) params, float32, raw control, and
+the scenario modes of the multi-drone mix and of the obstacle mix.
+Anything else raises NotImplementedError.
 
 Randomness: every draw comes from the caller's `torch.Generator`, unless
 `draws` supplies it (see `batched_env_step`).  The auto-reset is a Python
@@ -35,6 +41,7 @@ import numpy as np
 import torch
 
 from quadswarm_tpu_torch.env import collisions as coll
+from quadswarm_tpu_torch.env import obstacles as obst
 from quadswarm_tpu_torch.env.controls import action_dim, apply_control
 from quadswarm_tpu_torch.env.downwash import apply_downwash
 from quadswarm_tpu_torch.env.dynamics import (
@@ -46,8 +53,9 @@ from quadswarm_tpu_torch.env.reward import (
     RewardCoeffs, compute_reward, proximity_penalties,
 )
 from quadswarm_tpu_torch.env.scenarios import (
-    MIX_MODES_MULTI, MODE_IDS, ScenarioConfig, ScenarioState,
-    batched_scenario_step, check_modes, event_table_width, scenario_reset,
+    MIX_MODES_MULTI, MIX_MODES_OBSTACLES, MIX_MODES_OBSTACLES_SINGLE,
+    MODE_IDS, ScenarioConfig, ScenarioState, batched_scenario_step,
+    check_modes, event_table_width, scenario_reset,
 )
 from quadswarm_tpu_torch.env.sensor import SensorNoiseParams, add_noise
 from quadswarm_tpu_torch.ops.kernels.dynamics_kernel import dynamics_tick_fused
@@ -175,18 +183,17 @@ class EnvConfig:
                        int(self.obst_spawn_area[1])))
 
     def mode_list(self) -> tuple:
+        """The modes an episode draws from: the mix's candidates, or the one
+        mode asked for."""
         if self.quads_mode != "mix":
             return (MODE_IDS[self.quads_mode],)
-        return MIX_MODES_SINGLE if self.num_agents == 1 else MIX_MODES_MULTI
+        if self.num_agents == 1:
+            return (MIX_MODES_OBSTACLES_SINGLE if self.use_obstacles
+                    else MIX_MODES_SINGLE)
+        return MIX_MODES_OBSTACLES if self.use_obstacles else MIX_MODES_MULTI
 
     def check_supported(self) -> None:
         """Raise on any option this slice of the port does not run."""
-        unsupported = [name for name, on in (
-            ("use_obstacles", self.use_obstacles),
-            ("obst_density_random", self.obst_density_random),
-            ("obst_size_random", self.obst_size_random)) if on]
-        if unsupported:
-            raise NotImplementedError(f"{unsupported} not ported yet")
         if self.use_pallas_pairs and self.num_agents > MAX_AGENTS:
             raise ValueError(f"use_pallas_pairs supports num_agents <= "
                              f"{MAX_AGENTS}, got {self.num_agents}")
@@ -244,14 +251,6 @@ class EnvState(Struct):
     cum_rewraw_quadcol: torch.Tensor
 
 
-def cell_centers(length: int, width: int, grid_size: float = 1.0):
-    """Obstacle grid cell centers, (C, 2), in the reference's order."""
-    xs = np.arange(0, length, grid_size)
-    ys = np.arange(width - grid_size, -grid_size, -grid_size)
-    return np.array([[i + grid_size / 2 - length // 2,
-                      j + grid_size / 2 - width // 2] for i in xs for j in ys])
-
-
 def _sample_spawn(cfg: EnvConfig, gen, spawn_points):
     """Spawn around the scenario's spawn points, facing within 60 degrees
     of the room center."""
@@ -268,10 +267,17 @@ def _sample_spawn(cfg: EnvConfig, gen, spawn_points):
     return pos, zeros, yaw_rot(yaw), zeros.clone()
 
 
+def obstacles_of(state: EnvState) -> tuple:
+    """(obst_active, obst_pos, obst_size) of a state, as `_compute_obs`
+    takes them."""
+    return state.obst_active, state.obst_pos, state.obst_size
+
+
 def _compute_obs(cfg: EnvConfig, dyn: DroneState, goals, gyro_bias, gen,
-                 draws=None):
-    """(E, N, obs_dim): noisy self obs + clipped neighbor obs (from the
-    true positions)."""
+                 draws=None, obstacles=None):
+    """(E, N, obs_dim): noisy self obs + clipped neighbor obs + the SDF
+    patch of the obstacles (active (E, C), pos (E, C, 3), size (E,)); the
+    last two from the true positions."""
     noise = SensorNoiseParams(bypass=not cfg.use_sensor_noise)
     pos, vel, rot, omega, _, gyro_bias = add_noise(
         noise, dyn.pos, dyn.vel, dyn.rot, dyn.omega, dyn.accelerometer,
@@ -287,17 +293,40 @@ def _compute_obs(cfg: EnvConfig, dyn: DroneState, goals, gyro_bias, gen,
             parts.append(torch.minimum(torch.maximum(nbr, lo), hi))
         else:
             parts.append(neighbor_obs(dyn.pos, dyn.vel, k, lo, hi))
+    if cfg.use_obstacles:
+        active, obst_pos, size = obstacles
+        parts.append(obst.surround_sdf_obs(dyn.pos[..., :2],
+                                           obst_pos[..., :2], active,
+                                           size / 2.0))
     return torch.cat(parts, -1), gyro_bias
+
+
+def _episode_values(given, random: bool, lo: float, hi: float, step: float,
+                    fixed: float, gen, e: int, dtype, device):
+    """An obstacle density or size per env: `given` (E,), else a draw from
+    the domain-random grid arange(lo, hi, step), else the fixed value."""
+    if given is not None:
+        return given
+    if random:
+        grid = torch.as_tensor(np.arange(lo, hi, step), dtype=dtype,
+                               device=device)
+        return grid[torch.randint(0, grid.shape[0], (e,), generator=gen,
+                                  device=device)]
+    return torch.full((e,), fixed, dtype=dtype, device=device)
 
 
 def env_reset(cfg: EnvConfig, params, gen: torch.Generator, num_envs: int,
               device="cuda", rew_coeff: RewardCoeffs | None = None,
-              mode: int | None = None, event_slots: int | None = None):
-    """Fresh episodes for `num_envs` envs; returns (EnvState, obs).
+              mode: int | None = None, event_slots: int | None = None,
+              obst_density=None, obst_size=None):
+    """Fresh episodes for `num_envs` envs: obstacles -> scenario -> spawn
+    -> obs; returns (EnvState, obs).
 
     mode: force one scenario mode for every env (else each env samples one
     from the config's mode list).  event_slots pins the event-table size;
-    the auto-reset passes the running episode's size."""
+    the auto-reset passes the running episode's size.  obst_density and
+    obst_size (E,): keep these per env (else drawn from the domain-random
+    grids when those are on, else the config's)."""
     cfg.check_supported()
     _check_params(params)
     device = resolve_device(device)
@@ -310,11 +339,23 @@ def env_reset(cfg: EnvConfig, params, gen: torch.Generator, num_envs: int,
         lambda x: torch.as_tensor(x, dtype=dtype, device=device).expand(e)
         .clone(), rew_coeff)
 
-    centers = torch.as_tensor(cell_centers(*cfg.scenario_config().obst_area),
-                              dtype=dtype, device=device)
-    obst_pos = torch.cat([centers, torch.full((centers.shape[0], 1),
-                                              cfg.room_dims[2] / 2,
-                                              dtype=dtype, device=device)], -1)
+    density = _episode_values(obst_density, cfg.obst_density_random,
+                              cfg.obst_density_min, cfg.obst_density_max,
+                              0.05, cfg.obst_density, gen, e, dtype, device)
+    size = _episode_values(obst_size, cfg.obst_size_random, cfg.obst_size_min,
+                           cfg.obst_size_max, 0.1, cfg.obst_size, gen, e,
+                           dtype, device)
+    centers = torch.as_tensor(
+        obst.cell_centers(*cfg.scenario_config().obst_area), dtype=dtype,
+        device=device)
+    if cfg.use_obstacles:
+        obst_active, obst_pos = obst.generate_obstacle_grid(
+            gen, density, centers, cfg.room_dims[2])
+    else:
+        obst_active = torch.zeros((e, centers.shape[0]), dtype=torch.bool,
+                                  device=device)
+        obst_pos = obst.grid_positions(centers, cfg.room_dims[2]).expand(
+            e, -1, -1).clone()
     if mode is None:
         modes = torch.tensor(cfg.mode_list(), dtype=torch.int32,
                              device=device)
@@ -325,7 +366,8 @@ def env_reset(cfg: EnvConfig, params, gen: torch.Generator, num_envs: int,
         check_modes([mode])
         mode_t, table_modes = full(mode, torch.int32), None
     scen = scenario_reset(cfg.scenario_config(), gen, mode_t, dtype,
-                          allowed_modes=table_modes, num_slots=event_slots)
+                          allowed_modes=table_modes, num_slots=event_slots,
+                          obst_active=obst_active, obst_centers=centers)
     pos, vel, rot, omega = _sample_spawn(cfg, gen, scen.spawn_points)
     dyn = init_state((e, n), dtype, device).replace(pos=pos, vel=vel,
                                                     rot=rot, omega=omega)
@@ -340,10 +382,8 @@ def env_reset(cfg: EnvConfig, params, gen: torch.Generator, num_envs: int,
             else torch.zeros((e, n, n), dtype=torch.bool, device=device)),
         prev_coll_ids=flags(), prev_obst_hits=flags(), prev_wall=flags(),
         prev_ceiling=flags(), prev_room=flags(),
-        obst_active=torch.zeros((e, centers.shape[0]), dtype=torch.bool,
-                                device=device),
-        obst_pos=obst_pos.expand(e, -1, -1).clone(),
-        obst_density=full(cfg.obst_density), obst_size=full(cfg.obst_size),
+        obst_active=obst_active, obst_pos=obst_pos, obst_density=density,
+        obst_size=size,
         gyro_bias=zf(n, 3), dist5=zf(n, 5),
         collisions_per_episode=zi(), collisions_after_settle=zi(),
         collisions_final_5s=zi(), obst_collisions_per_episode=zi(),
@@ -355,7 +395,8 @@ def env_reset(cfg: EnvConfig, params, gen: torch.Generator, num_envs: int,
         reached_goal=flags(), dist_sum_1s=zf(n), dist_sum_3s=zf(n),
         dist_sum_5s=zf(n), crashes_last_episode=zf(), cum_rewraw_main=zf(n),
         cum_rewraw_quadcol=zf(n))
-    obs, gyro_bias = _compute_obs(cfg, dyn, scen.goals, state.gyro_bias, gen)
+    obs, gyro_bias = _compute_obs(cfg, dyn, scen.goals, state.gyro_bias, gen,
+                                  obstacles=obstacles_of(state))
     return state.replace(gyro_bias=gyro_bias), obs
 
 
@@ -378,7 +419,7 @@ def _fleet_dynamics(cfg: EnvConfig, params, states: EnvState, actions, gen,
 
 def batched_env_step(cfg: EnvConfig, params, states: EnvState,
                      actions: torch.Tensor, gen: torch.Generator | None,
-                     draws: dict | None = None):
+                     draws: dict | None = None, auto_reset: bool = True):
     """One control tick for E envs.  Returns (states', obs (E, N, D),
     rewards (E, N), dones (E, N), info dict of (E,) / (E, N) tensors).
 
@@ -386,9 +427,12 @@ def batched_env_step(cfg: EnvConfig, params, states: EnvState,
       "ou" (4,) standard normals of the OU motor noise; "yaw" () crash-yaw
       angles in [-pi, pi); "downwash" a dict for env/downwash.py;
       "drone_normals" (3, 3, 3) and "drone_uniforms" (6,) per drone for
-      the collision response; "wall" (11,) and "ceiling" (10,) unit
-      uniforms; "sensor" a dict for env/sensor.py.
+      the drone collision response; "obst_normals" (3, 2, 3) and
+      "obst_uniforms" (5,) for the obstacle response; "wall" (11,) and
+      "ceiling" (10,) unit uniforms; "sensor" a dict for env/sensor.py.
     Missing draws come from `gen`.  The auto-reset always draws from `gen`.
+    With auto_reset=False a finished episode stays finished, and the tick
+    makes no device-to-host sync.
     """
     cfg.check_supported()
     _check_params(params)
@@ -396,15 +440,24 @@ def batched_env_step(cfg: EnvConfig, params, states: EnvState,
                                                 gen, draws or {})
     # One device-to-host sync per tick: the reset runs only on ticks where
     # some episode ended (episodes are fixed-length).
-    if bool(torch.any(done)):
-        slots = (states.scenario.events.shape[-1]
-                 // event_table_width(cfg.num_agents))
-        reset_states, reset_obs = env_reset(
-            cfg, params, gen, done.shape[0], device=actions.device,
-            rew_coeff=new_state.rew_coeff, event_slots=slots)
+    if auto_reset and bool(torch.any(done)):
+        reset_states, reset_obs = reset_like(cfg, params, gen, new_state)
         new_state = _select_done(done, reset_states, new_state)
         obs = _select_done(done, reset_obs, obs)
     return new_state, obs, rewards, done[:, None].expand(rewards.shape), info
+
+
+def reset_like(cfg: EnvConfig, params, gen, states: EnvState):
+    """Fresh episodes for every env of `states`, in the shapes of their
+    event tables, with their reward coefficients, and with their obstacle
+    density and size unless those are domain-random."""
+    slots = (states.scenario.events.shape[-1]
+             // event_table_width(cfg.num_agents))
+    return env_reset(
+        cfg, params, gen, states.tick.shape[0], device=states.tick.device,
+        rew_coeff=states.rew_coeff, event_slots=slots,
+        obst_density=None if cfg.obst_density_random else states.obst_density,
+        obst_size=None if cfg.obst_size_random else states.obst_size)
 
 
 def _step(cfg: EnvConfig, params, states: EnvState, actions, gen,
@@ -453,7 +506,32 @@ def _step(cfg: EnvConfig, params, states: EnvState, actions, gen,
     agent_col_agent = torch.where(
         (cct > 0)[:, None] & grace[:, None] & unique_ids,
         torch.zeros_like(states.agent_col_agent), states.agent_col_agent)
-    curr_obst = torch.zeros_like(unique_ids)
+
+    # Obstacle collisions: a hit counts on the tick it starts.
+    if cfg.use_obstacles:
+        obst_hit, obst_idx = obst.obstacle_collisions(
+            dyn.pos[..., :2], states.obst_pos[..., :2], states.obst_active,
+            states.obst_size / 2.0, arm)
+        curr_obst = obst_hit & ~states.prev_obst_hits
+        n_obst = torch.sum(curr_obst, -1).to(torch.int32)
+        settled = curr_obst & grace[:, None]
+        rel_dist = torch.linalg.vector_norm(dyn.pos - goals, dim=-1)
+        binned = lambda far: torch.sum(settled & (rel_dist > far),
+                                       -1).to(torch.int32)
+        obst_counts = dict(
+            obst_collisions_per_episode=states.obst_collisions_per_episode
+            + n_obst,
+            obst_collisions_after_settle=states.obst_collisions_after_settle
+            + torch.where(grace, n_obst, zero_i),
+            obst_coll_dist_3_5=states.obst_coll_dist_3_5 + binned(3.5),
+            obst_coll_dist_5=states.obst_coll_dist_5 + binned(5.0),
+            agent_col_obst=torch.where(
+                (n_obst > 0)[:, None] & settled,
+                torch.zeros_like(states.agent_col_obst),
+                states.agent_col_obst))
+    else:
+        obst_hit = curr_obst = torch.zeros_like(unique_ids)
+        obst_counts = {}
 
     floor_crash = dyn.crashed_floor
     wall_crash = dyn.crashed_wall & ~states.prev_wall
@@ -477,6 +555,8 @@ def _step(cfg: EnvConfig, params, states: EnvState, actions, gen,
     rew_obst_raw = -curr_obst.to(dtype)
     rew_quadcol_obst = rc.quadcol_bin_obst[:, None] * rew_obst_raw
     rewards = rewards + rew_quadcol + rew_proximity
+    if cfg.use_obstacles:
+        rewards = rewards + rew_quadcol_obst
 
     # Goal-distance tracking.
     dist_to_goal = torch.linalg.vector_norm(dyn.pos - goals, dim=-1)
@@ -502,6 +582,13 @@ def _step(cfg: EnvConfig, params, states: EnvState, actions, gen,
             vel, omega = coll.drone_collision_response(
                 dyn.pos, vel, omega, new_pairs, gen,
                 draws.get("drone_normals"), draws.get("drone_uniforms"))
+        if cfg.use_obstacles:
+            hit_pos = torch.gather(states.obst_pos, 1, obst_idx[..., None]
+                                   .expand(obst_idx.shape + (3,)))
+            vel, omega = coll.obstacle_collision_response(
+                dyn.pos, vel, omega, hit_pos, states.obst_size[:, None],
+                curr_obst, gen, draws.get("obst_normals"),
+                draws.get("obst_uniforms"))
         vel, omega = coll.wall_collision_response(
             dyn.pos, vel, omega, cfg.room_box, wall_crash, gen,
             draws.get("wall"))
@@ -511,11 +598,11 @@ def _step(cfg: EnvConfig, params, states: EnvState, actions, gen,
 
     # 6. Observations (K3 reads the post-response velocities).
     obs, gyro_bias = _compute_obs(cfg, dyn, scen.goals, states.gyro_bias, gen,
-                                  draws.get("sensor"))
+                                  draws.get("sensor"), obstacles_of(states))
 
     new_state = states.replace(
         dyn=dyn, scenario=scen, tick=tick, prev_coll_pairs=curr_pairs,
-        prev_coll_ids=curr_ids, prev_obst_hits=curr_obst,
+        prev_coll_ids=curr_ids, prev_obst_hits=obst_hit,
         prev_wall=wall_crash, prev_ceiling=ceiling_crash,
         prev_room=room_crash, gyro_bias=gyro_bias, dist5=dist5,
         collisions_per_episode=collisions_per_episode,
@@ -539,7 +626,8 @@ def _step(cfg: EnvConfig, params, states: EnvState, actions, gen,
         crashes_last_episode=states.crashes_last_episode
         + rew_info.rew_crash[:, 0],
         cum_rewraw_main=states.cum_rewraw_main + rew_info.rewraw_pos,
-        cum_rewraw_quadcol=states.cum_rewraw_quadcol - unique_ids.to(dtype))
+        cum_rewraw_quadcol=states.cum_rewraw_quadcol - unique_ids.to(dtype),
+        **obst_counts)
 
     # 7. Episode metrics + auto-reset of the finished envs.
     info = _episode_stats(cfg, new_state, done)

@@ -27,9 +27,8 @@ import torch
 
 from quadswarm_tpu_torch.env.multi import (
     EnvConfig, EnvState, _check_params, _compute_obs, _select_done, _step,
-    env_reset,
+    obstacles_of, reset_like,
 )
-from quadswarm_tpu_torch.env.scenarios import event_table_width
 from quadswarm_tpu_torch.utils.struct import Struct, leaves, map_fields
 
 CP_STEP_SEC = 0.5            # checkpoint cadence
@@ -133,7 +132,11 @@ def batched_replay_step(cfg: EnvConfig, params, sample_prob: float,
     save_cp = live & (tick % int(CP_STEP_SEC * freq) == 0)
     cp_slot = r.ep_cp_count % EP_CP_SLOTS
     ep_cp_count = r.ep_cp_count + save_cp.to(torch.int32)
+    # a new drone pair or a new obstacle hit
     collided = torch.any(new_state.prev_coll_ids & ~states.prev_coll_ids, -1)
+    if cfg.use_obstacles:
+        collided = collided | torch.any(
+            new_state.prev_obst_hits & ~states.prev_obst_hits, -1)
     can_write = (live & collided & (tick > int(1.5 * freq))
                  & (tick - r.last_tick_added > int(5 * freq))
                  & (ep_cp_count >= steps_ago))
@@ -197,15 +200,14 @@ def batched_replay_step(cfg: EnvConfig, params, sample_prob: float,
             rew_coeff=new_state.rew_coeff)
         replay_obs, _ = _compute_obs(
             cfg, replay_env.dyn, replay_env.scenario.goals,
-            replay_env.gyro_bias, gen, draws.get("replay_sensor"))
+            replay_env.gyro_bias, gen, draws.get("replay_sensor"),
+            obstacles_of(replay_env))
         new_state = _select_done(did_replay, replay_env, new_state)
         obs = torch.where(did_replay[:, None, None], replay_obs, obs)
     if fire_reset:
-        slots_k = (states.scenario.events.shape[-1]
-                   // event_table_width(cfg.num_agents))
-        reset_states, reset_obs = env_reset(
-            cfg, params, gen, e, device=dev, rew_coeff=new_state.rew_coeff,
-            event_slots=slots_k)
+        # a fresh episode keeps the env's obstacle density and size unless
+        # they are domain-random
+        reset_states, reset_obs = reset_like(cfg, params, gen, new_state)
         new_state = _select_done(needs_reset, reset_states, new_state)
         obs = torch.where(needs_reset[:, None, None], reset_obs, obs)
 

@@ -1,10 +1,13 @@
 """Goal scenarios, batched over envs.
 
 Port of quadswarm_tpu/env/scenarios.py for the nine free-space modes of the
-multi-drone mix curriculum (MIX_MODES_MULTI).  Every function works on a
-batch of E envs at once (the JAX package writes one env and vmaps); the
-per-env mode is data, and each mode's branch is a masked `torch.where`.
-Asking for any other mode raises NotImplementedError.
+multi-drone mix curriculum (MIX_MODES_MULTI) and the two modes of the
+obstacle mix (MIX_MODES_OBSTACLES: o_random, o_static_same_goal), which
+spawn the drones on free cells of the obstacle grid and have no events.
+Every function works on a batch of E envs at once (the JAX package writes
+one env and vmaps); the per-env mode is data, and each mode's branch is a
+masked `torch.where`.  Asking for any other mode raises
+NotImplementedError.
 
 Where the randomness comes from.  The JAX package derives every scenario
 draw from `fold_in(scen_key, tick)`, so that reset can presample the
@@ -43,7 +46,9 @@ MIX_MODES_MULTI = tuple(MODE_IDS[m] for m in (
     "static_same_goal", "static_diff_goal", "ep_lissajous3D", "ep_rand_bezier",
     "dynamic_same_goal", "dynamic_diff_goal", "dynamic_formations",
     "swap_goals", "swarm_vs_swarm"))
-SUPPORTED_MODES = frozenset(MIX_MODES_MULTI)
+MIX_MODES_OBSTACLES = (MODE_IDS["o_random"], MODE_IDS["o_static_same_goal"])
+MIX_MODES_OBSTACLES_SINGLE = (MODE_IDS["o_random"],)
+SUPPORTED_MODES = frozenset(MIX_MODES_MULTI + MIX_MODES_OBSTACLES)
 
 _ARM = 0.05
 # (formation choices, dist_low, dist_high) of the supported modes.
@@ -62,7 +67,11 @@ _ROWS = [MODE_TABLE.get(m, (1, 0.0, 0.0)) for m in MODES]
 MODE_NUM_CHOICES = np.array([r[0] for r in _ROWS], np.int64)
 MODE_DIST_LOW = np.array([r[1] for r in _ROWS], np.float64)
 MODE_DIST_HIGH = np.array([r[2] for r in _ROWS], np.float64)
-APPROACH_GOAL_METRIC = 0.5          # every free-space mode
+# approach_goal_metric per mode: 0.5, and 1.0 for the obstacle modes but
+# o_random.
+MODE_APPROACH_METRIC = np.array(
+    [1.0 if (m.startswith("o_") and m != "o_random") else 0.5 for m in MODES],
+    np.float64)
 
 BEZIER_ATTEMPTS = 20
 CONTINUOUS_MODES = frozenset((MODE_IDS["dynamic_formations"],
@@ -147,8 +156,10 @@ def check_modes(modes) -> None:
     bad = sorted(set(int(m) for m in modes) - SUPPORTED_MODES)
     if bad:
         raise NotImplementedError(
-            f"scenario modes {[MODES[m] for m in bad]} are not ported yet; "
-            "the port supports the nine free-space modes of the mix")
+            f"scenario modes {[MODES[m] for m in bad]} are not ported yet "
+            "(ROADMAP.md Queue 1 item 11b); the port supports the nine "
+            "free-space modes of the mix and the obstacle mix's o_random "
+            "and o_static_same_goal")
 
 
 def num_event_slots(cfg: ScenarioConfig, allowed_modes=None) -> int:
@@ -274,16 +285,80 @@ def _bezier_eval(nodes, t):
 
 
 # --------------------------------------------------------------------------
+# Obstacle-map helpers
+# --------------------------------------------------------------------------
+
+def sample_free_cells(gen, active: torch.Tensor, centers: torch.Tensor,
+                      num: int, z_lo: float, z_hi: float, dtype=torch.float32):
+    """`num` distinct free cells of every env, as (E, num, 3) points with a
+    uniform z in [z_lo, z_hi).  Cells are ranked by random scores with the
+    occupied ones last; past the grid's size the ranking wraps around."""
+    e, c = active.shape
+    scores = torch.rand((e, c), generator=gen, device=active.device)
+    scores = torch.where(active, torch.full_like(scores, -float("inf")),
+                         scores)
+    order = torch.argsort(scores, dim=-1, descending=True)
+    idx = (order[:, :num] if num <= c else
+           order[:, torch.arange(num, device=active.device) % c])
+    z = _uniform(gen, (e, num), z_lo, z_hi, dtype, active.device)
+    return torch.cat([centers[idx].to(dtype), z[..., None]], -1)
+
+
+def max_free_square_center(gen, obst_map2d: torch.Tensor,
+                           centers: torch.Tensor, dtype=torch.float32):
+    """The centre cell of every env's largest all-free square, (E, 3) with a
+    uniform z in [1.5, 3).  obst_map2d (E, n, m) bool, True where occupied.
+
+    The reference's dynamic programme, with its quirks kept: the first row
+    and column of the table are seeded from the obstacle map itself, the
+    first square found in row-major order wins, and the centre (cx, cy) is
+    read from the cell-centre list at cx + m * cy (clamped to the list, as
+    a JAX gather clamps).  The table is filled cell by cell over the env
+    axis, with no host sync."""
+    e, n, m = obst_map2d.shape
+    dev = obst_map2d.device
+    occ = obst_map2d.to(torch.int32)
+    free = (~obst_map2d).to(torch.int32)
+    cx = cy = torch.zeros((e,), dtype=torch.int64, device=dev)
+    if n > 1 and m > 1:
+        dp = [[occ[:, i, j] if i == 0 or j == 0 else None for j in range(m)]
+              for i in range(n)]
+        vals = []
+        for i in range(1, n):
+            for j in range(1, m):
+                v = torch.minimum(torch.minimum(dp[i - 1][j], dp[i][j - 1]),
+                                  dp[i - 1][j - 1])
+                dp[i][j] = (v + 1) * free[:, i, j]
+                vals.append(dp[i][j])
+        vals = torch.stack(vals, -1)                   # row-major i, j >= 1
+        k = torch.argmax(vals, -1)                     # the first best
+        best = torch.gather(vals, -1, k[:, None])[:, 0].to(torch.int64)
+        half = torch.div(best - 1, 2, rounding_mode="floor")
+        found = best > 0
+        cx = torch.where(found, torch.div(k, m - 1, rounding_mode="floor")
+                         + 1 - half, cx)
+        cy = torch.where(found, k % (m - 1) + 1 - half, cy)
+    index = torch.clamp(cx + m * cy, max=centers.shape[0] - 1)
+    z = _uniform(gen, (e,), 1.5, 3.0, dtype, dev)
+    return torch.cat([centers[index].to(dtype), z[:, None]], -1)
+
+
+# --------------------------------------------------------------------------
 # Reset
 # --------------------------------------------------------------------------
 
 def scenario_reset(cfg: ScenarioConfig, gen: torch.Generator, mode,
                    dtype=torch.float32, allowed_modes=None,
-                   num_slots: int | None = None) -> ScenarioState:
+                   num_slots: int | None = None, obst_active=None,
+                   obst_centers=None) -> ScenarioState:
     """A fresh episode's scenario for each env's mode (E,) int tensor,
-    including its presampled event table."""
-    check_modes(torch.unique(mode).tolist() if allowed_modes is None
-                else allowed_modes)
+    including its presampled event table.  The obstacle modes place the
+    drones on the free cells of `obst_active` (E, C) bool, whose cell
+    centres are `obst_centers` (C, 2); without them the grid is empty."""
+    present = set(int(m) for m in (torch.unique(mode).tolist()
+                                   if allowed_modes is None
+                                   else allowed_modes))
+    check_modes(present)
     n = cfg.num_agents
     dev = mode.device
     e = mode.shape[0]
@@ -309,8 +384,8 @@ def scenario_reset(cfg: ScenarioConfig, gen: torch.Generator, mode,
         goal_center_1=default_center.clone(),
         goal_center_2=default_center.clone(),
         end_point=default_center.clone(),
-        approach_goal_metric=torch.full((e,), APPROACH_GOAL_METRIC,
-                                        dtype=dtype, device=dev),
+        approach_goal_metric=torch.as_tensor(
+            MODE_APPROACH_METRIC, dtype=dtype, device=dev)[mode.long()],
         goals_base=g_at_0, goals_slope=g_at_1 - g_at_0,
         scen_seed=torch.randint(0, 1 << 31, (e,), generator=gen, device=dev),
         event_count=torch.zeros((e,), dtype=torch.int32, device=dev),
@@ -357,6 +432,29 @@ def scenario_reset(cfg: ScenarioConfig, gen: torch.Generator, mode,
                                    st.formation_center)),
         goal_center_1=_sel(is_svs, c1, st.goal_center_1),
         goal_center_2=_sel(is_svs, c2, st.goal_center_2))
+
+    # o_random and o_static_same_goal: spawn on free cells at z 1-3; per
+    # drone goals on other free cells (o_random) or the centre of the
+    # freest square (o_static_same_goal, and the end point of both).
+    if present & set(MIX_MODES_OBSTACLES):
+        a0, a1 = cfg.obst_area
+        c = a0 * a1
+        active = (torch.zeros((e, c), dtype=torch.bool, device=dev)
+                  if obst_active is None else obst_active)
+        centers = (torch.zeros((c, 2), dtype=dtype, device=dev)
+                   if obst_centers is None else obst_centers)
+        spawn = sample_free_cells(gen, active, centers, n, 1.0, 3.0, dtype)
+        per_agent = sample_free_cells(gen, active, centers, n, 1.0, 3.0,
+                                      dtype)
+        square = max_free_square_center(gen, active.reshape(e, a0, a1),
+                                        centers, dtype)
+        is_obst = ((mode == MODE_IDS["o_random"])
+                   | (mode == MODE_IDS["o_static_same_goal"]))
+        goals = _sel(mode == MODE_IDS["o_random"], per_agent,
+                     square[:, None, :].expand(e, n, 3))
+        st = st.replace(goals=_sel(is_obst, goals, st.goals),
+                        spawn_points=_sel(is_obst, spawn, st.spawn_points),
+                        end_point=_sel(is_obst, square, st.end_point))
 
     # ep_rand_bezier: an initial curve at reset (the tick-1 event resamples).
     is_bez = mode == MODE_IDS["ep_rand_bezier"]

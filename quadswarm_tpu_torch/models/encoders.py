@@ -1,10 +1,12 @@
 """Policy/value encoders.
 
 Port of quadswarm_tpu/models/encoders.py, limited to the 'corl' encoder
-with the attention neighbor encoder (the flagship run's).  The observation
-layout is [self | k * (rel_pos, rel_vel)].  Submodule names follow the flax
-modules', so `utils/convert.py` maps a flax parameter tree one to one
-(a flax `Dense_i` inside an MLP is `layers.i` here).
+with the attention neighbor encoder (the flagship run's) or none
+(`no_encoder`), and the obstacle encoder over the SDF patch (the obstacle
+run's).  The observation layout is [self | k * (rel_pos, rel_vel) | SDF].
+Submodule names follow the flax modules', so `utils/convert.py` maps a flax
+parameter tree one to one (a flax `Dense_i` inside an MLP is `layers.i`
+here).
 """
 from __future__ import annotations
 
@@ -71,16 +73,16 @@ class NeighborEncoderAttention(nn.Module):
 
 
 class QuadMultiEncoder(nn.Module):
-    """'corl' encoder: self MLP + neighbor encoder, fused by a tanh
-    feed-forward layer to 2 * rnn_size features."""
+    """'corl' encoder: self MLP + optional neighbor encoder + optional
+    obstacle MLP, fused by a tanh feed-forward layer to 2 * rnn_size
+    features."""
 
     def __init__(self, self_obs_dim: int, neighbor_obs_dim: int,
                  num_neighbors: int, neighbor_encoder_type: str = "attention",
                  neighbor_hidden: int = 256, use_obstacles: bool = False,
+                 obstacle_obs_dim: int = 9, obstacle_hidden: int = 256,
                  rnn_size: int = 256, act: str = "tanh"):
         super().__init__()
-        if use_obstacles:
-            raise NotImplementedError("the obstacle encoder is not ported yet")
         self.self_obs_dim = self_obs_dim
         self.nb_total = neighbor_obs_dim * num_neighbors
         self.self_encoder = MLP(self_obs_dim, (rnn_size, rnn_size), act)
@@ -95,6 +97,11 @@ class QuadMultiEncoder(nn.Module):
                 self_obs_dim, neighbor_obs_dim, neighbor_hidden,
                 num_neighbors, act)
             width += neighbor_hidden
+        self.obstacle_encoder = None
+        if use_obstacles:
+            self.obstacle_encoder = MLP(obstacle_obs_dim,
+                                        (obstacle_hidden, obstacle_hidden), act)
+            width += obstacle_hidden
         self.feed_forward = _dense(width, 2 * rnn_size)
         self.out_size = 2 * rnn_size
 
@@ -105,12 +112,13 @@ class QuadMultiEncoder(nn.Module):
         if self.neighbor_encoder is not None:
             parts.append(self.neighbor_encoder(
                 self_obs, obs[..., s:s + self.nb_total]))
+        if self.obstacle_encoder is not None:
+            parts.append(self.obstacle_encoder(obs[..., s + self.nb_total:]))
         return torch.tanh(self.feed_forward(torch.cat(parts, -1)))
 
 
 def make_encoder(encoder_type: str, **kwargs) -> nn.Module:
     if encoder_type != "corl":
         raise NotImplementedError(f"encoder {encoder_type!r} is not ported")
-    for key in ("obstacle_hidden", "sim2real"):
-        kwargs.pop(key, None)
+    kwargs.pop("sim2real", None)       # the corl encoder has no variant
     return QuadMultiEncoder(**kwargs)

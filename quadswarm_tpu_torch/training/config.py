@@ -2,10 +2,11 @@
 
 Port of quadswarm_tpu/training/config.py: the same flags, names, defaults
 and choices (the reference's `--quads_*` flags plus the Sample Factory
-training flags its baselines set), so `train.sh`'s command line parses
-unchanged, plus `--device` (default `cuda`).  Flags of paths the port does
-not run yet raise NotImplementedError naming their ROADMAP.md item, rather
-than train something else.
+training flags its baselines set), so the command lines of `train.sh` and
+`train_local_obst.sh` parse unchanged, plus `--device` (default `cuda`);
+with `evaluation=True` also the eval CLI's flags.  Flags of paths the port
+does not run yet raise NotImplementedError naming their ROADMAP.md item,
+rather than train something else.
 """
 from __future__ import annotations
 
@@ -16,6 +17,8 @@ import warnings
 
 # ROADMAP.md Queue 1 items of the paths not ported yet.
 _NOT_PORTED = "is not ported yet (ROADMAP.md Queue 1 item {})"
+# The scenario modes the port runs beside the free-space ones.
+_OBSTACLE_MODES = ("o_random", "o_static_same_goal")
 
 
 def str2bool(v):
@@ -197,12 +200,35 @@ def add_training_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--pbt_perturb_max", default=1.2, type=float)
 
 
-def parse_swarm_cfg(argv=None) -> argparse.Namespace:
+def add_evaluation_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--load_checkpoint_kind", default="latest",
+                   choices=["latest", "best"])
+    p.add_argument("--max_num_episodes", default=1, type=int)
+    p.add_argument("--eval_envs", default=1, type=int,
+                   help="envs run side by side in a round (episodes are "
+                        "fixed-length, so a round ends eval_envs episodes); "
+                        "1 = the single-env loop, which can dump "
+                        "trajectories")
+    p.add_argument("--render_mode", default="plot",
+                   choices=["plot", "dump", "none", "human", "rgb_array",
+                            "live"],
+                   help="the port runs dump and none (ROADMAP.md item 15 "
+                        "holds the others)")
+    p.add_argument("--render_out", default="render_out", type=str)
+    p.add_argument("--render_every_nth", default=5, type=int)
+    p.add_argument("--realtime", default=False, type=str2bool, nargs="?",
+                   const=True)
+
+
+def parse_swarm_cfg(argv=None, evaluation: bool = False
+                    ) -> argparse.Namespace:
     p = argparse.ArgumentParser("quadswarm_tpu_torch")
     p.add_argument("--env", default="quadrotor_multi", type=str)
     p.add_argument("--algo", default="APPO", type=str)
     add_quadrotors_env_args(p)
     add_training_args(p)
+    if evaluation:
+        add_evaluation_args(p)
     return _resolve_compat_flags(p.parse_args(argv))
 
 
@@ -229,6 +255,13 @@ def _resolve_compat_flags(args) -> argparse.Namespace:
     if args.quads_obstacle_obs_type == "octomap" and not args.quads_use_obstacles:
         raise ValueError("--quads_obstacle_obs_type=octomap requires "
                          "--quads_use_obstacles=True")
+    if args.quads_use_obstacles and args.quads_obstacle_obs_type == "none":
+        warnings.warn("obstacles are on but --quads_obstacle_obs_type=none: "
+                      "the model ignores the SDF observation")
+    if ((args.quads_obst_density_random or args.quads_obst_size_random)
+            and not args.quads_domain_random):
+        warnings.warn("--quads_obst_density_random/--quads_obst_size_random "
+                      "have no effect without --quads_domain_random=True")
     if args.quads_use_pallas == "false":
         raise ValueError("--quads_use_pallas=false names the plain dynamics "
                          "on the card, which the port does not run: its "
@@ -239,10 +272,10 @@ def _resolve_compat_flags(args) -> argparse.Namespace:
          args.with_pbt and args.num_policies > 1, 13),
         ("--async_rl (APPO)", args.async_rl, 13),
         ("--multi_host", args.multi_host, 14),
-        ("--quads_use_obstacles", args.quads_use_obstacles, 11),
         (f"--quads_mode={args.quads_mode}",
-         args.quads_mode.startswith("o_") or args.quads_mode == "run_away",
-         11),
+         (args.quads_mode.startswith("o_")
+          and args.quads_mode not in _OBSTACLE_MODES)
+         or args.quads_mode == "run_away", "11b"),
         ("bfloat16 (--dtype, --model_dtype)",
          "bfloat16" in (args.dtype, args.model_dtype), 8),
     )

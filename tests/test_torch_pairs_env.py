@@ -218,7 +218,7 @@ def test_flag_is_supported_and_too_many_agents_refused():
         t_multi.EnvConfig(num_agents=2049,
                           use_pallas_pairs=True).check_supported()
     with pytest.raises(NotImplementedError):
-        t_multi.EnvConfig(use_obstacles=True,
+        t_multi.EnvConfig(quads_mode="o_swap_goals",
                           use_pallas_pairs=True).check_supported()
 
 

@@ -162,8 +162,10 @@ def test_counter_uniform_stream():
 def test_unported_modes_raise():
     gen = torch.Generator().manual_seed(0)
     with pytest.raises(NotImplementedError):
-        ts.scenario_reset(T_CFG, gen, torch.tensor([js.MODE_IDS["o_random"]]))
+        ts.scenario_reset(T_CFG, gen,
+                          torch.tensor([js.MODE_IDS["o_swap_goals"]]))
     with pytest.raises(NotImplementedError):
         EnvConfig(quads_mode="run_away").check_supported()
-    with pytest.raises(NotImplementedError):
-        EnvConfig(use_obstacles=True).check_supported()
+    with pytest.raises(NotImplementedError, match="item 11b"):
+        EnvConfig(use_obstacles=True,
+                  quads_mode="o_dynamic_same_goal").check_supported()

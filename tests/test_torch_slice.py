@@ -147,8 +147,10 @@ def _jax_step(jcfg, jparams, jstate, actions, draws):
     for e in range(n_envs):
         dw = [draws["downwash"][k][e] for k in ("acc", "omega", "axis", "dir")
               ] if jcfg.use_downwash else []
-        j_coll.set_response_tape({"drone_normals": draws["drone_normals"][e],
-                                  "drone_uniforms": draws["drone_uniforms"][e]})
+        j_coll.set_response_tape({
+            name: draws[name][e] for name in (
+                "drone_normals", "drone_uniforms", "obst_normals",
+                "obst_uniforms") if name in draws})
         try:
             with taped(j_downwash, dw), \
                     taped(j_sensor, [] if defer else sensor(e)), \

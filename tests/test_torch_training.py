@@ -13,7 +13,8 @@ sides):
   and strided, one and two env groups (equal);
 - `RunningMeanStd.update` / `update_masked` (rtol 1e-6);
 - `episode_stat_sums` + `stats_from_sums` (rtol 1e-6);
-- `train.sh`'s flags through both packages' `parse_swarm_cfg`.
+- the flags of `train.sh` and `train_local_obst.sh` through both packages'
+  `parse_swarm_cfg`.
 On the port alone: the minibatch layout the JAX package cannot cut, a
 checkpoint round trip, the CLI with a resume, and a Trainer.
 """
@@ -301,8 +302,8 @@ def test_episode_stats_match_jax():
 # Config, checkpoints, Trainer, CLI
 # --------------------------------------------------------------------------
 
-def _train_sh_flags() -> list:
-    text = (ROOT / "train.sh").read_text().replace("\\\n", " ")
+def _train_sh_flags(script: str = "train.sh") -> list:
+    text = (ROOT / script).read_text().replace("\\\n", " ")
     line = next(ln for ln in text.splitlines()
                 if "quadswarm_tpu.training.train" in ln)
     words = shlex.split(line)
@@ -316,8 +317,9 @@ TINY = ["--num_envs=4", "--rollout=8", "--batch_size=32",
         "--quads_episode_duration=0.5", "--device=cpu"]
 
 
-def test_train_sh_flags_parse_alike_in_both_packages():
-    flags = _train_sh_flags()
+@pytest.mark.parametrize("script", ["train.sh", "train_local_obst.sh"])
+def test_train_sh_flags_parse_alike_in_both_packages(script):
+    flags = _train_sh_flags(script)
     assert "--replay_buffer_sample_prob=0.75" in flags
     ja, ta = j_config.parse_swarm_cfg(flags), t_config.parse_swarm_cfg(flags)
     assert ta.device == "cuda"
@@ -347,8 +349,8 @@ def test_train_sh_flags_parse_alike_in_both_packages():
     (["--with_pbt=True", "--num_policies=4"], NotImplementedError),
     (["--async_rl=True"], NotImplementedError),
     (["--multi_host=True"], NotImplementedError),
-    (["--quads_use_obstacles=True"], NotImplementedError),
-    (["--quads_mode=o_random"], NotImplementedError),
+    (["--quads_mode=o_swap_goals"], NotImplementedError),
+    (["--quads_mode=run_away"], NotImplementedError),
     (["--dtype=bfloat16"], NotImplementedError),
 ])
 def test_flags_of_paths_not_ported_are_refused(extra, error):
