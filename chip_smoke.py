@@ -33,11 +33,12 @@ Phases, each raising on failure:
      train.sh's flags (1024 envs x 8, rollout 128, batch 1024, replay 0.75,
      annealing, downwash, the 256-wide attention model, TF32 off) for 3
      iterations, each with its rollout/learner split, losses, launches,
-     device-to-host syncs per tick (at most 1) and peak memory; then
-     `batched_replay_step` on the card against the CPU on the dense route
-     (16 x 8) and the pairs route (16 x 128), every branch fired; the
+     device-to-host syncs (one a tick, for the episode ends) and peak
+     memory; then `batched_replay_step` on the card against the CPU on the
+     dense route (16 x 8) and the pairs route (16 x 128), every branch
+     fired; the
      learner on the card against the CPU; the train CLI with train.sh's
-     flags for 2 iterations and a resume for a third;
+     flags for 1 iteration and a resume for a second;
   8. obst: train_local_obst.sh's training, a `Trainer` built from its flags
      (1024 envs x 8 on the 8 x 8 obstacle grid, the SDF observation and the
      obstacle encoder, rollout 128, batch 1024, replay 0.75) for 2
@@ -50,16 +51,41 @@ Phases, each raising on failure:
      wrote at a small width, each round with its wall time, ticks/s,
      launches, syncs and the success and deadlock rates; then one round
      with train_local_obst.sh's flags from the obst phase's checkpoint (or
-     fresh weights); K1 on each round's final state.
+     fresh weights); K1 on each round's final state;
+ 10. runs: the run files.  Each port file's code is the JAX file's with
+     the training module swapped (the JAX file parsed as text, never
+     imported), and the launcher's dry backend expands every one; the final
+     obstacle run (the first command of runs/obstacles/quads_multi_obstacles:
+     the 'attention' encoder type, 2 visible neighbours, the 8 x 8 grid,
+     1024 envs x 8 x 128, batch 1024, replay 0.75) for 2 iterations at full
+     width with the train phase's lines; the new encoders (attention, its
+     sim2real variant, corl with mean_embed and with mlp, with obstacles)
+     on the card against the CPU; one iteration of each other run file at
+     its own width with --rollout=16 (the depth cut is printed); the
+     refusal of quad_multi_mix_baseline_attn_8; K1 on the final run's state;
+ 11. appo: train.sh's flags plus --async_rl=True --policy_lag=1
+     --with_vtrace=True, full width, 3 iterations with the learner's
+     recompute time, in turns with 2 of train.sh's sync-PPO iterations;
+     the third iteration rolls out with the weights after the first; the
+     learner's targets (V-trace and GAE) on the card against the CPU; K1
+     on the state it reached;
+ 12. pbt: runs/pbt_quads_multi_obstacles' command at full width (8 policies
+     x 512 envs x 8 x 128): one iteration of each, a round with injected
+     objectives (policy p scores p) after which each adoptee's parameters
+     and Adam state equal its source's bit for bit and differ after one
+     more iteration of each, peak memory with 8 policies resident; K1 on a
+     policy's state; then the CLI's PBT branch with 2 policies at a small
+     width, which writes checkpoint_p0 and checkpoint_p1.
 
     python3 chip_smoke.py --phases build,profile --trace out/trace.json
     python3 chip_smoke.py --phases build,profile --profile_path swarm
     python3 chip_smoke.py --phases build,profile --profile_path train
+    python3 chip_smoke.py --phases build,profile --profile_path final
 
 adds a torch.profiler breakdown of the flagship rollout, of the swarm
-rollout, or of train.sh's Trainer (replay rollout ticks, then minibatch
-steps): device time by kernel, the device's busy share; with --trace it
-writes the Chrome trace.
+rollout, or of train.sh's Trainer or the final obstacle run's (replay
+rollout ticks, then minibatch steps): device time by kernel, the device's
+busy share; with --trace it writes the Chrome trace.
 
     python3 chip_smoke.py --phases build,sweep
 
@@ -945,6 +971,12 @@ def _profile(card: str, label: str, fn, count: int, unit: str,
                       "aten::_local_scalar_dense", "cudaMemcpyAsync"):
             print(f"[{card}]   host {ev.self_cpu_time_total / count:8.1f} "
                   f"us/{unit}  {ev.count / count:5.1f}/{unit}  {ev.key}")
+    # where the host's time goes (the profiler's own cost included)
+    host = sorted((ev for ev in avgs if ev.self_cpu_time_total > 0),
+                  key=lambda ev: ev.self_cpu_time_total, reverse=True)
+    for ev in host[:10]:
+        print(f"[{card}]   host self {ev.self_cpu_time_total / count:8.1f} "
+              f"us/{unit}  {ev.count / count:6.1f}/{unit}  {ev.key[:70]}")
     if trace:
         Path(trace).parent.mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(trace)
@@ -953,8 +985,9 @@ def _profile(card: str, label: str, fn, count: int, unit: str,
 def phase_profile(card: str, trace: str | None, path: str) -> None:
     """torch.profiler over 8 rollout ticks at the flagship width (`path`
     "flagship": 1024 x 8) or on the large-swarm path ("swarm": 256 x 128,
-    pair kernels on); or ("train") over train.sh's Trainer: 8 rollout
-    ticks with collision replay, then 64 of its minibatch steps."""
+    pair kernels on); or ("train") over train.sh's Trainer, ("final") over
+    the final obstacle run's: 8 rollout ticks with collision replay, then
+    64 of its minibatch steps."""
     import torch
     from quadswarm_tpu_torch.env.multi import EnvConfig, env_reset
     from quadswarm_tpu_torch.env.params import make_dynamics_params
@@ -963,8 +996,9 @@ def phase_profile(card: str, trace: str | None, path: str) -> None:
     from quadswarm_tpu_torch.parallel import ppo as P
 
     t = 8
-    if path == "train":
-        tr = _flagship_trainer()
+    if path in ("train", "final"):
+        tr = _flagship_trainer(argv=None if path == "train"
+                               else _final_run_flags())
         tr.set_ppo_cfg(tr.ppo_cfg.replace(rollout=t))
         tr.iteration()                                   # warm-up
         rollout = lambda: P.collect_rollout(
@@ -976,9 +1010,9 @@ def phase_profile(card: str, trace: str | None, path: str) -> None:
                                  tr.ppo_cfg.gae_lambda)
         steps = P.minibatch_layout(tuple(traj.reward.shape),
                                    tr.ppo_cfg.batch_size).num_minibatches
-        _profile(card, f"{t} rollout ticks with replay at 1024x8 (train)",
+        _profile(card, f"{t} rollout ticks with replay at 1024x8 ({path})",
                  rollout, t, "tick", None)
-        _profile(card, f"{steps} minibatch steps of 1024 (train)",
+        _profile(card, f"{steps} minibatch steps of 1024 ({path})",
                  lambda: P.sgd_epochs(tr.model, tr.optimizer, tr.ppo_cfg,
                                       traj, adv, ret, tr.gen),
                  steps, "step", trace)
@@ -1237,24 +1271,95 @@ class SyncCounter:
         return False
 
 
-def _flagship_trainer(device="cuda", script: str = "train.sh"):
+def _flagship_trainer(device="cuda", script: str = "train.sh",
+                      argv: list | None = None):
     """A Trainer at a training script's settings (train.sh's by default),
-    built as the CLI builds it."""
+    or at the flags `argv`, built as the CLI builds it (an APPOTrainer under
+    --async_rl)."""
     import torch
     from quadswarm_tpu_torch.env.params import make_dynamics_params
+    from quadswarm_tpu_torch.parallel.appo import APPOTrainer
     from quadswarm_tpu_torch.parallel.ppo import Trainer
     from quadswarm_tpu_torch.training import config
 
-    args = config.parse_swarm_cfg(train_sh_flags(script))
+    args = config.parse_swarm_cfg(train_sh_flags(script) if argv is None
+                                  else argv)
     env_cfg = config.env_config_from_args(args)
     ppo = config.ppo_config_from_args(args)
     torch.manual_seed(args.seed)
     model = config.model_from_args(args, env_cfg, device=device)
+    kwargs = dict(seed=args.seed,
+                  anneal_schedules=config.anneal_schedules_from_args(args),
+                  base_rew_coeff=config.base_rew_coeff_from_args(args),
+                  device=device)
+    if args.async_rl:
+        return APPOTrainer(env_cfg, ppo, model,
+                           make_dynamics_params(dt=env_cfg.dt),
+                           policy_lag=args.policy_lag, **kwargs)
     return Trainer(env_cfg, ppo, model, make_dynamics_params(dt=env_cfg.dt),
-                   seed=args.seed,
-                   anneal_schedules=config.anneal_schedules_from_args(args),
-                   base_rew_coeff=config.base_rew_coeff_from_args(args),
-                   device=device)
+                   **kwargs)
+
+
+def _iterations(card: str, label: str, trainer, iters: int) -> tuple:
+    """`iters` iterations of a trainer, each counted and timed on one line:
+    rollout/learner split (and APPO's recompute), ms a minibatch,
+    agent-steps/s, losses (finite), parameters that moved, K1 launches (one
+    a tick, the dense route), device-to-host syncs (one a tick: the episode
+    ends), peak memory.  Returns (summed launch counts, the iterations'
+    wall times, the last iteration's infos)."""
+    import torch
+
+    ppo, cfg = trainer.ppo_cfg, trainer.env_cfg
+    e, n, t = ppo.num_envs, cfg.num_agents, ppo.rollout
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    total = {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+    walls = []
+    for it in range(iters):
+        before = [p.detach().clone() for p in trainer.model.parameters()]
+        _reset_counts()
+        t0 = time.perf_counter()
+        with SyncCounter() as syncs:
+            metrics, infos = trainer.iteration()
+        wall = time.perf_counter() - t0
+        walls.append(wall)
+        counts = _read_counts()
+        for kid in total:
+            total[kid] += counts[kid]
+        if counts != {"K1": t, "K2": 0, "K3": 0, "K4": 0}:
+            raise AssertionError(f"{label} iteration {it}: launches {counts},"
+                                 f" expected K1 {t}")
+        m = {k: float(v) for k, v in metrics.items()}
+        for k in ("loss", "pg_loss", "v_loss", "entropy", "approx_kl"):
+            if not math.isfinite(m[k]):
+                raise AssertionError(f"{label} iteration {it}: {k} = {m[k]}")
+        changed = max(float((p.detach() - b).abs().max())
+                      for p, b in zip(trainer.model.parameters(), before))
+        if not changed > 0:
+            raise AssertionError(f"{label} iteration {it}: the parameters "
+                                 "did not change")
+        if syncs.implicit != t:
+            raise AssertionError(f"{label} iteration {it}: {syncs.implicit} "
+                                 f"syncs in {t} ticks, at {syncs.where}")
+        sec = trainer.seconds
+        recompute = (f"; of it the recompute {sec['recompute']:.3f} s"
+                     if "recompute" in sec else "")
+        steps = e * n * t // ppo.batch_size
+        print(f"[{card}] {label} iteration {it} ({e}x{n} x {t}, batch "
+              f"{ppo.batch_size}, replay {ppo.replay_sample_prob}): "
+              f"{wall:.3f} s = rollout {sec['rollout']:.3f} s + learner "
+              f"{sec['learner']:.3f} s "
+              f"({sec['learner'] / steps * 1e3:.3f} ms per minibatch"
+              f"{recompute}); "
+              f"{e * n * t / wall:,.0f} agent-steps/s; loss {m['loss']:.5g} "
+              f"pg_loss {m['pg_loss']:.5g} v_loss {m['v_loss']:.5g} entropy "
+              f"{m['entropy']:.5g} approx_kl {m['approx_kl']:.3g}; "
+              f"parameters moved up to {changed:.3g}; K1 "
+              f"launches {counts['K1']}; {syncs.implicit} device-to-host "
+              f"syncs ({syncs.implicit / t:.3f} per tick; {syncs.explicit} "
+              f"explicit); peak allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**20:,.0f} MiB")
+    return total, walls, infos
 
 
 def _train_flagship(card: str) -> tuple:
@@ -1274,48 +1379,7 @@ def _train_flagship(card: str) -> tuple:
         raise AssertionError(f"annealing {trainer.anneal_schedules}")
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("TF32 is on")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    total = {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
-    for it in range(TRAIN_ITERS):
-        before = [p.detach().clone() for p in trainer.model.parameters()]
-        _reset_counts()
-        t0 = time.perf_counter()
-        with SyncCounter() as syncs:
-            metrics, infos = trainer.iteration()
-        wall = time.perf_counter() - t0
-        counts = _read_counts()
-        for kid in total:
-            total[kid] += counts[kid]
-        if counts != {"K1": t, "K2": 0, "K3": 0, "K4": 0}:
-            raise AssertionError(f"iteration {it}: launches {counts}, "
-                                 f"expected K1 {t} (dense route)")
-        m = {k: float(v) for k, v in metrics.items()}
-        for k in ("loss", "pg_loss", "v_loss", "entropy", "approx_kl"):
-            if not math.isfinite(m[k]):
-                raise AssertionError(f"iteration {it}: {k} = {m[k]}")
-        changed = max(float((p.detach() - b).abs().max())
-                      for p, b in zip(trainer.model.parameters(), before))
-        if not changed > 0:
-            raise AssertionError(f"iteration {it}: the parameters did not "
-                                 "change")
-        per_tick = syncs.implicit / t
-        if per_tick > 1:
-            raise AssertionError(f"iteration {it}: {syncs.implicit} syncs in "
-                                 f"{t} ticks, at {syncs.where}")
-        sec = trainer.seconds
-        print(f"[{card}] train iteration {it} (1024x8 x 128, batch 1024, "
-              f"replay 0.75): {wall:.3f} s = rollout {sec['rollout']:.3f} s "
-              f"+ learner {sec['learner']:.3f} s "
-              f"({sec['learner'] / (e * n * t // ppo.batch_size) * 1e3:.3f} "
-              f"ms per minibatch); {e * n * t / wall:,.0f} agent-steps/s; "
-              f"loss {m['loss']:.5g} pg_loss {m['pg_loss']:.5g} v_loss "
-              f"{m['v_loss']:.5g} entropy {m['entropy']:.5g} approx_kl "
-              f"{m['approx_kl']:.3g}; parameters moved up to {changed:.3g}; "
-              f"K1 launches {counts['K1']}; {syncs.implicit} device-to-host "
-              f"syncs ({per_tick:.3f} per tick; {syncs.explicit} explicit "
-              f"for the timing split); peak allocated "
-              f"{torch.cuda.max_memory_allocated() / 2**20:,.0f} MiB")
+    total, _, infos = _iterations(card, "train", trainer, TRAIN_ITERS)
     stats = trainer.episode_stats(infos)
     print(f"[{card}] train: {trainer.env_steps:,} env steps, "
           f"{trainer.step} optimizer steps, collision coefficient "
@@ -1558,8 +1622,8 @@ def _train_cli(flags: list, timeout: int = 600):
 
 
 def _cli_twice(card: str, train_dir: str) -> None:
-    """The train CLI with train.sh's flags for 2 iterations into
-    `train_dir`, then again for a third: it resumes, and env_steps go
+    """The train CLI with train.sh's flags for 1 iteration into
+    `train_dir`, then again for a second: it resumes, and env_steps go
     on."""
     from pathlib import Path
 
@@ -1567,7 +1631,7 @@ def _cli_twice(card: str, train_dir: str) -> None:
                                 "--experiment=smoke", "--log_every_iters=1"]
     outs = [_train_cli(flags + [
         f"--train_for_env_steps={iters * TRAIN_ITER_STEPS}"])
-        for iters in (2, 3)]
+        for iters in (1, 2)]
     exp = Path(train_dir) / "smoke"
     config = json.loads((exp / "config.json").read_text())
     lines = [json.loads(x) for x in
@@ -1575,15 +1639,15 @@ def _cli_twice(card: str, train_dir: str) -> None:
     cps = sorted(p.name for p in (exp / "checkpoint_p0").iterdir())
     steps = [r["env_steps"] for r in lines]
     if config["device"] != "cuda" or steps != [
-            i * TRAIN_ITER_STEPS for i in (1, 2, 3)]:
+            i * TRAIN_ITER_STEPS for i in (1, 2)]:
         raise AssertionError(f"CLI metrics at env steps {steps}")
     if "resumed from" not in outs[1][0] or cps != [
-            f"checkpoint_{i * TRAIN_ITER_STEPS:012d}.pt" for i in (2, 3)]:
+            f"checkpoint_{i * TRAIN_ITER_STEPS:012d}.pt" for i in (1, 2)]:
         raise AssertionError(f"CLI resume: checkpoints {cps}")
     if not all(math.isfinite(r["loss"]) for r in lines):
         raise AssertionError("CLI losses are not finite")
-    print(f"[{card}] train CLI with train.sh's flags: 2 iterations in "
-          f"{outs[0][1]:.1f} s, then resumed for a third in "
+    print(f"[{card}] train CLI with train.sh's flags: 1 iteration in "
+          f"{outs[0][1]:.1f} s, then resumed for a second in "
           f"{outs[1][1]:.1f} s (processes, start-up included); "
           f"perf/sps {[round(r['perf/sps']) for r in lines]}, checkpoints "
           f"{cps}")
@@ -1665,7 +1729,6 @@ def phase_obst(card: str, train_dir: str) -> tuple:
     card against the CPU, and K1 on the state the run reached.  Saves the
     trainer's checkpoint into `train_dir` for the eval phase.  Returns the
     launch counts of the iterations and the K1 check."""
-    import torch
     from quadswarm_tpu_torch.training import config as C
     from quadswarm_tpu_torch.utils.checkpoint import (
         checkpoint_dir, save_checkpoint)
@@ -1687,49 +1750,11 @@ def phase_obst(card: str, train_dir: str) -> tuple:
     print(f"[{card}] obst: train_local_obst.sh's Trainer, weights from seed "
           f"{args.seed} (torch.manual_seed), {int(trainer.env_states.obst_active.sum(-1).float().mean())} "
           f"obstacles an env")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    total = {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
-    hits = 0
-    for it in range(OBST_ITERS):
-        before = [p.detach().clone() for p in trainer.model.parameters()]
-        _reset_counts()
-        t0 = time.perf_counter()
-        with SyncCounter() as syncs:
-            metrics, infos = trainer.iteration()
-        wall = time.perf_counter() - t0
-        counts = _read_counts()
-        for kid in total:
-            total[kid] += counts[kid]
-        if counts != {"K1": t, "K2": 0, "K3": 0, "K4": 0}:
-            raise AssertionError(f"obst iteration {it}: launches {counts}, "
-                                 f"expected K1 {t}")
-        m = {k: float(v) for k, v in metrics.items()}
-        for k in ("loss", "pg_loss", "v_loss", "entropy", "approx_kl"):
-            if not math.isfinite(m[k]):
-                raise AssertionError(f"obst iteration {it}: {k} = {m[k]}")
-        changed = max(float((p.detach() - b).abs().max())
-                      for p, b in zip(trainer.model.parameters(), before))
-        if not changed > 0:
-            raise AssertionError(f"obst iteration {it}: the parameters did "
-                                 "not change")
-        if syncs.implicit != t:
-            raise AssertionError(f"obst iteration {it}: {syncs.implicit} "
-                                 f"syncs in {t} ticks, at {syncs.where}")
-        # no episode ends within these ticks: the counters hold every hit
-        hits = int(infos["num_collisions_obst_quad"][-1].sum())
-        sec = trainer.seconds
-        print(f"[{card}] obst iteration {it} (1024x8 x 128, batch 1024, "
-              f"replay 0.75, obstacles 8x8 at 0.2): {wall:.3f} s = rollout "
-              f"{sec['rollout']:.3f} s + learner {sec['learner']:.3f} s; "
-              f"{e * n * t / wall:,.0f} agent-steps/s; loss {m['loss']:.5g} "
-              f"pg_loss {m['pg_loss']:.5g} v_loss {m['v_loss']:.5g}; "
-              f"parameters moved up to {changed:.3g}; K1 launches "
-              f"{counts['K1']}; {syncs.implicit} device-to-host syncs "
-              f"({syncs.implicit / t:.3f} per tick; {syncs.explicit} "
-              f"explicit); peak allocated "
-              f"{torch.cuda.max_memory_allocated() / 2**20:,.0f} MiB; "
-              f"obstacle hits so far {hits}")
+    total, _, infos = _iterations(card, "obst", trainer, OBST_ITERS)
+    # no episode ends within these ticks: the counters hold every hit
+    hits = int(infos["num_collisions_obst_quad"][-1].sum())
+    print(f"[{card}] obst: obstacle hits after {OBST_ITERS} iterations "
+          f"{hits}")
     if hits <= 0:
         raise AssertionError("no obstacle hit in the obst iterations")
     exp = f"{train_dir}/obst"
@@ -1843,6 +1868,444 @@ def phase_eval(card: str, train_dir: str) -> tuple:
     return flagship, obst
 
 
+# ---------------------------------------------------------------------------
+# The run files (runs/), APPO and PBT
+# ---------------------------------------------------------------------------
+
+RUN_MODULES = (
+    "quad_multi_mix_baseline", "quad_multi_mix_baseline_attn_8",
+    "single_quad_baseline", "single_quad", "pbt_quads_multi_obstacles",
+    "obstacles.quads_multi_obstacles", "obstacles.obst_density_random",
+    "obstacles.obst_size_random", "obstacles.obst_domain_random",
+    "obstacles.quads_multi_obstacles_nei_encoder_search")
+# The run files trained one iteration each in the runs phase, at the file's
+# own width with the rollout cut to RUNS_ROLLOUT ticks.
+OTHER_RUNS = ("obstacles.obst_density_random", "obstacles.obst_domain_random",
+              "obstacles.obst_size_random",
+              "obstacles.quads_multi_obstacles_nei_encoder_search",
+              "quad_multi_mix_baseline", "single_quad_baseline")
+RUNS_ROLLOUT = 16
+FINAL_ITERS = 2
+APPO_ITERS = 3
+JAX_TRAIN = "quadswarm_tpu.training.train"
+PORT_TRAIN = "quadswarm_tpu_torch.training.train"
+# The card against the CPU on the same weights and inputs: |card - cpu| <=
+# rtol |cpu| + top * (the largest |cpu| entry), TF32 off.
+CARD_RTOL = 1e-5
+CARD_TOP = 1e-6
+
+
+def _close_to_cpu(label: str, got, want) -> float:
+    """The elementwise bound above; returns the largest difference over
+    the largest entry."""
+    got = got.detach().cpu()
+    top = float(want.abs().max())
+    err = (got - want).abs()
+    if bool((err > CARD_RTOL * want.abs() + CARD_TOP * top).any()):
+        raise AssertionError(f"{label}: the card differs from the CPU by "
+                             f"{float(err.max())} (largest entry {top})")
+    return float(err.max()) / max(top, 1e-30)
+
+
+def _run_file_code(path, swap: bool) -> str:
+    """A run file's code as an AST dump, its docstring dropped; with
+    `swap`, the JAX package's training and run modules named as the
+    port's.  The file is parsed, never imported."""
+    import ast
+    tree = ast.parse(path.read_text())
+    if tree.body and isinstance(tree.body[0], ast.Expr) and isinstance(
+            tree.body[0].value, ast.Constant):
+        tree.body = tree.body[1:]
+    if swap:
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Constant) and isinstance(node.value, str):
+                node.value = node.value.replace(JAX_TRAIN, PORT_TRAIN)
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                node.module = node.module.replace("quadswarm_tpu.runs",
+                                                  "quadswarm_tpu_torch.runs")
+    return ast.dump(tree)
+
+
+def _final_run_flags() -> list:
+    """The first command of runs/obstacles/quads_multi_obstacles (the final
+    obstacle run) as CLI flags."""
+    import shlex
+    from quadswarm_tpu_torch.runs.obstacles import quads_multi_obstacles
+
+    (_, cmd), *_ = quads_multi_obstacles.RUN_DESCRIPTION.commands("td")
+    return shlex.split(cmd)[3:]
+
+
+def _run_commands(card: str) -> dict:
+    """Every port run file's code is the JAX file's with the training
+    module swapped (the JAX file read as text); the launcher's dry
+    expansion of each prints its commands.  Returns run name -> [(name,
+    argv)]."""
+    import contextlib
+    import importlib
+    import io
+    import shlex
+    from pathlib import Path
+    from quadswarm_tpu_torch.runs import launcher
+
+    root = Path(__file__).resolve().parent
+    files = sorted(p.relative_to(root / "quadswarm_tpu" / "runs")
+                   for p in (root / "quadswarm_tpu" / "runs").rglob("*.py")
+                   if p.name not in ("launcher.py", "__init__.py"))
+    for rel in files:
+        if _run_file_code(root / "quadswarm_tpu" / "runs" / rel, True) != \
+                _run_file_code(root / "quadswarm_tpu_torch" / "runs" / rel,
+                               False):
+            raise AssertionError(f"runs/{rel}: the port's code is not the "
+                                 "JAX file's with the module swapped")
+    out = {}
+    for name in RUN_MODULES:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = launcher.main([f"--run=quadswarm_tpu_torch.runs.{name}",
+                                "--backend=dry", "--train_dir=td"])
+        cmds = list(importlib.import_module(
+            f"quadswarm_tpu_torch.runs.{name}").RUN_DESCRIPTION.commands("td"))
+        printed = [ln.strip() for ln in buf.getvalue().splitlines()[1:]]
+        if rc or printed != [f"{n}: {c}" for n, c in cmds] or not all(
+                shlex.split(c)[:3] == ["python", "-m", PORT_TRAIN]
+                for _, c in cmds):
+            raise AssertionError(f"dry expansion of {name}: {printed[:2]}")
+        out[name] = [(n, shlex.split(c)[3:]) for n, c in cmds]
+    print(f"[{card}] runs: {len(files)} run files hold the JAX files' code "
+          f"with {JAX_TRAIN} -> {PORT_TRAIN}; the dry launcher expands "
+          f"{len(out)} of them into "
+          f"{sum(len(v) for v in out.values())} commands")
+    return out
+
+
+def _free() -> None:
+    """Return the memory of the trainers the caller dropped to the card."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _encoders_agree(card: str) -> None:
+    """One forward of each new encoder (the final obstacle run's widths:
+    19 + 2 x 6 + 9 inputs, 256 wide) on the card against the CPU on the same
+    weights and 8,192 rows."""
+    import copy
+    import torch
+    from quadswarm_tpu_torch.models.actor_critic import ActorCritic
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on")
+    base = dict(self_obs_dim=19, neighbor_obs_dim=6, num_neighbors=2,
+                neighbor_hidden=256, obstacle_hidden=256, rnn_size=256,
+                use_obstacles=True)
+    cases = {"attention": dict(encoder_type="attention"),
+             "attention sim2real": dict(encoder_type="attention",
+                                        sim2real=True),
+             "corl mean_embed": dict(neighbor_encoder_type="mean_embed"),
+             "corl mlp": dict(neighbor_encoder_type="mlp")}
+    gen = torch.Generator().manual_seed(41)
+    obs = 2 * torch.randn((8192, 19 + 12 + 9), generator=gen)
+    worst = {}
+    for label, kw in cases.items():
+        torch.manual_seed(41)
+        cpu = ActorCritic(**base, **kw, device="cpu")
+        gpu = copy.deepcopy(cpu).cuda()
+        with torch.no_grad():
+            want, got = cpu(obs), gpu(obs.cuda())
+        worst[label] = max(_close_to_cpu(f"encoder {label} {name}", g, w)
+                           for name, g, w in zip(("mean", "log_std", "value"),
+                                                 got, want))
+    print(f"[{card}] encoders on the card against the CPU (8,192 rows, 256 "
+          f"wide, TF32 off; rtol {CARD_RTOL} + {CARD_TOP} of the largest "
+          "entry): largest difference over the largest entry "
+          + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()))
+
+
+def phase_runs(card: str) -> tuple:
+    """The run files: their dry expansion against the JAX files; the final
+    obstacle run (the first command of runs/obstacles/quads_multi_obstacles)
+    at full width for FINAL_ITERS iterations; the new encoders on the card
+    against the CPU; one iteration of each other run file at its own width
+    with the rollout cut to RUNS_ROLLOUT; attn_8's refusal.  Returns the
+    final run's launch counts and K1's check on the state it reached."""
+    import torch
+    from quadswarm_tpu_torch.models.encoders import (
+        QuadMultiHeadAttentionEncoder)
+    from quadswarm_tpu_torch.training import config as C
+
+    t0 = time.perf_counter()
+    cmds = _run_commands(card)
+    name, argv = cmds["obstacles.quads_multi_obstacles"][0]
+    trainer = _flagship_trainer(argv=argv)
+    ppo, cfg = trainer.ppo_cfg, trainer.env_cfg
+    if not isinstance(trainer.model.actor_encoder,
+                      QuadMultiHeadAttentionEncoder) or (
+            ppo.num_envs, cfg.num_agents, ppo.rollout, ppo.batch_size,
+            ppo.replay_sample_prob, cfg.neighbor_visible_num,
+            cfg.use_obstacles, cfg.obst_spawn_area, cfg.obs_dim) != (
+            1024, 8, 128, 1024, 0.75, 2, True, (8.0, 8.0), 40):
+        raise AssertionError(f"{name} is not the final obstacle run")
+    size = sum(p.numel() for p in trainer.model.parameters())
+    print(f"[{card}] final obstacle run ({name}): 'attention' encoder type, "
+          f"{size:,} parameters, obstacles {cfg.obst_spawn_area} at "
+          f"{cfg.obst_density}, weights from seed 0")
+    counts, _, _ = _iterations(card, "final obstacle run", trainer,
+                               FINAL_ITERS)
+    check = check_on_env_state(card, "final obstacle run state",
+                               trainer.env_states, cfg, trainer.dyn_params)
+    del trainer
+    _free()
+    _encoders_agree(card)
+    for run in OTHER_RUNS:
+        name, argv = cmds[run][0]
+        trainer = _flagship_trainer(argv=argv + [f"--rollout={RUNS_ROLLOUT}"])
+        _iterations(card, f"{run} ({name}, depth cut: --rollout="
+                    f"{RUNS_ROLLOUT})", trainer, 1)
+        del trainer
+        _free()
+    name, argv = cmds["quad_multi_mix_baseline_attn_8"][0]
+    args = C.parse_swarm_cfg(argv)
+    env_cfg = C.env_config_from_args(args)
+    try:
+        C.model_from_args(args, env_cfg, device="cuda")
+    except ValueError as e:
+        if "ZeroDivisionError" not in str(e):
+            raise
+        print(f"[{card}] quad_multi_mix_baseline_attn_8 ({name}) is refused "
+              f"at model build: {e}")
+    else:
+        raise AssertionError("quad_multi_mix_baseline_attn_8 was not refused")
+    torch.cuda.synchronize()
+    print(f"[{card}] runs phase: {time.perf_counter() - t0:.1f} s")
+    return counts, check
+
+
+def _appo_targets_agree(card: str) -> None:
+    """APPO's learner targets (the per-step recompute and V-trace) on the
+    card against the CPU: train.sh's model, one trajectory of 16 envs x 8 x
+    rollout 8, the same weights."""
+    import copy
+    import torch
+    from quadswarm_tpu_torch.models.actor_critic import (
+        ActorCritic, gaussian_log_prob)
+    from quadswarm_tpu_torch.parallel import appo as A
+    from quadswarm_tpu_torch.parallel.ppo import PPOConfig, Transition
+
+    t, e, n, dim = 8, 16, 8, 54
+    gen = torch.Generator().manual_seed(43)
+    torch.manual_seed(43)
+    cpu = ActorCritic(num_neighbors=6, rnn_size=256, neighbor_hidden=256,
+                      device="cpu")
+    gpu = copy.deepcopy(cpu).cuda()
+    obs = 2 * torch.randn((t, e, n, dim), generator=gen)
+    with torch.no_grad():
+        mean, log_std, value = cpu(obs.reshape(-1, dim))
+    actions = mean + log_std.exp() * torch.randn(mean.shape, generator=gen)
+    # the behaviour's log-probs a lag away from the learner's
+    log_prob = gaussian_log_prob(mean, log_std, actions) + 0.3 * torch.randn(
+        (t * e * n,), generator=gen)
+    traj = Transition(obs=obs, actions=actions.reshape(t, e, n, 4),
+                      log_prob=log_prob.reshape(t, e, n),
+                      value=value.reshape(t, e, n),
+                      reward=torch.randn((t, e, n), generator=gen),
+                      done=torch.rand((t, e, n), generator=gen) < 0.1)
+    last_obs = 2 * torch.randn((e, n, dim), generator=gen)
+    worst = 0.0
+    for cfg in (PPOConfig(with_vtrace=True), PPOConfig()):
+        want = A.learner_targets(cpu, cfg, traj, last_obs)
+        got = A.learner_targets(gpu, cfg, Transition(*(x.cuda() for x in traj)),
+                                last_obs.cuda())
+        for name, g, w in zip(("advantages", "returns"), got, want):
+            worst = max(worst, _close_to_cpu(
+                f"APPO targets ({'V-trace' if cfg.with_vtrace else 'GAE'}) "
+                f"{name}", g, w))
+    print(f"[{card}] APPO learner targets on the card against the CPU "
+          f"({e}x{n} x {t}, V-trace and GAE): largest difference over the "
+          f"largest entry {worst:.3g} (rtol {CARD_RTOL} + {CARD_TOP} of the "
+          "largest entry)")
+
+
+def phase_appo(card: str) -> tuple:
+    """train.sh's flags plus --async_rl=True --policy_lag=1
+    --with_vtrace=True, full width, APPO_ITERS iterations in turns with
+    train.sh's sync-PPO Trainer (appo, sync, appo, sync, appo: the two in
+    one call, on one host): the third APPO iteration rolls out with the
+    weights after the first.  Then the learner's targets on the card
+    against the CPU.  Returns APPO's launch counts and K1's check."""
+    import torch
+    from quadswarm_tpu_torch.parallel.appo import APPOTrainer
+
+    t0 = time.perf_counter()
+    trainer = _flagship_trainer(argv=train_sh_flags() + [
+        "--async_rl=True", "--policy_lag=1", "--with_vtrace=True"])
+    if not isinstance(trainer, APPOTrainer) or trainer.policy_lag != 1 or \
+            not trainer.ppo_cfg.with_vtrace:
+        raise AssertionError("not train.sh's APPO with V-trace at lag 1")
+    sync = _flagship_trainer()
+    counts = {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+    walls = {"appo": [], "sync": []}
+    after_first = {}
+    for it in range(APPO_ITERS):
+        c, w, _ = _iterations(card, f"appo (lag 1, V-trace) #{it}", trainer,
+                              1)
+        counts = {k: counts[k] + c[k] for k in counts}
+        walls["appo"] += w
+        if it == 0:
+            after_first.update({k: v.clone() for k, v in
+                                trainer.model.state_dict().items()})
+        if it == 2:
+            same = all(torch.equal(v, after_first[k]) for k, v in
+                       trainer.behavior.state_dict().items())
+            if trainer.behavior_version != 1 or not same:
+                raise AssertionError("APPO's third iteration did not roll "
+                                     "out with the first one's weights")
+            print(f"[{card}] appo: the third iteration rolled out with the "
+                  "weights after the first (behaviour version "
+                  f"{trainer.behavior_version}, every tensor equal)")
+        if it < APPO_ITERS - 1:
+            walls["sync"] += _iterations(
+                card, f"sync PPO in turns #{it}", sync, 1)[1]
+    appo_s, sync_s = (sum(v[1:]) / len(v[1:]) if len(v) > 1 else v[0]
+                      for v in (walls["appo"], walls["sync"]))
+    print(f"[{card}] appo against sync PPO in turns (train.sh, 1024x8 x "
+          f"128): APPO {[round(x, 3) for x in walls['appo']]} s, sync "
+          f"{[round(x, 3) for x in walls['sync']]} s; without each one's "
+          f"first, APPO {appo_s:.3f} s against {sync_s:.3f} s "
+          f"({appo_s / sync_s - 1:+.1%})")
+    check = check_on_env_state(card, "appo state", trainer.env_states,
+                               trainer.env_cfg, trainer.dyn_params)
+    del trainer, sync
+    _free()
+    _appo_targets_agree(card)
+    print(f"[{card}] appo phase: {time.perf_counter() - t0:.1f} s")
+    return counts, check
+
+
+def phase_pbt(card: str, train_dir: str) -> tuple:
+    """runs/pbt_quads_multi_obstacles' command at full width (8 policies x
+    512 envs x 8 x 128): one iteration of each policy; a round with injected
+    objectives (policy p scores p), after which each adoptee's parameters
+    and Adam state equal its source's bit for bit, and differ after one
+    more iteration of each; then the CLI's PBT branch with 2 policies at a
+    small width.  Returns the launch counts of the round of iterations and
+    K1's check."""
+    import shlex
+    import torch
+    from pathlib import Path
+    from quadswarm_tpu_torch.env.params import make_dynamics_params
+    from quadswarm_tpu_torch.parallel.pbt import PBTRunner
+    from quadswarm_tpu_torch.runs import pbt_quads_multi_obstacles as run
+    from quadswarm_tpu_torch.training import config as C
+
+    t0 = time.perf_counter()
+    (name, cmd), = run.RUN_DESCRIPTION.commands(train_dir)
+    args = C.parse_swarm_cfg(shlex.split(cmd)[3:])
+    env_cfg = C.env_config_from_args(args)
+    ppo = C.ppo_config_from_args(args)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runner = PBTRunner(
+        env_cfg, ppo, lambda: C.model_from_args(args, env_cfg, device="cuda"),
+        make_dynamics_params(dt=env_cfg.dt), C.pbt_config_from_args(args),
+        seed=args.seed, anneal_schedules=C.anneal_schedules_from_args(args),
+        exp_dir=str(Path(train_dir) / name),
+        base_rew_coeff=C.base_rew_coeff_from_args(args), device="cuda")
+    trainers = [s.trainer for s in runner.policies]
+    enc = trainers[0].model.actor_encoder
+    e, n, t = ppo.num_envs, env_cfg.num_agents, ppo.rollout
+    if (len(trainers), e, n, t, ppo.batch_size, env_cfg.obs_repr,
+            env_cfg.obs_dim) != (8, 512, 8, 128, 1024,
+                                 "xyz_vxyz_R_omega_wall", 69) or \
+            enc.obstacle_encoder is None or enc.neighbor_encoder is None:
+        raise AssertionError(f"{name} is not the PBT run's configuration")
+    print(f"[{card}] pbt: {name}, {len(trainers)} policies resident, "
+          f"{torch.cuda.memory_allocated() / 2**20:,.0f} MiB allocated "
+          "after their construction")
+
+    def turn(label, policies):
+        _reset_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for p in policies:
+            metrics, _ = trainers[p].iteration()
+            for k, v in metrics.items():
+                if not math.isfinite(float(v)):
+                    raise AssertionError(f"pbt policy {p}: {k} = {float(v)}")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+        counts = _read_counts()
+        if counts != {"K1": len(policies) * t, "K2": 0, "K3": 0, "K4": 0}:
+            raise AssertionError(f"pbt {label}: launches {counts}")
+        print(f"[{card}] pbt {label}: {len(policies)} iterations of "
+              f"{e}x{n} x {t} in {secs:.3f} s "
+              f"({len(policies) * e * n * t / secs:,.0f} agent-steps/s); K1 "
+              f"launches {counts['K1']}; peak allocated with "
+              f"{len(trainers)} policies resident "
+              f"{torch.cuda.max_memory_allocated() / 2**20:,.0f} MiB")
+        return counts
+
+    counts = turn("round of iterations", range(len(trainers)))
+    for p, slot in enumerate(runner.policies):
+        slot.recent_true_rewards = [float(p)]
+    runner._pbt_round()
+
+    def state(tr):
+        params = list(tr.model.parameters())
+        return params, [tr.optimizer.state[q] for q in params]
+
+    def equal(a, b):
+        (ap, ao), (bp, bo) = state(a), state(b)
+        return all(torch.equal(x, y) for x, y in zip(ap, bp)) and all(
+            torch.equal(x[k], y[k]) for x, y in zip(ao, bo)
+            for k in ("exp_avg", "exp_avg_sq", "step"))
+
+    pairs = []
+    for b in (0, 1):
+        src = [s for s in (6, 7) if equal(trainers[s], trainers[b])]
+        if len(src) != 1:
+            raise AssertionError(f"pbt: policy {b} adopted from {src}")
+        (bp, bo), (sp, so) = state(trainers[b]), state(trainers[src[0]])
+        if any(x.data_ptr() == y.data_ptr() for x, y in zip(bp, sp)) or any(
+                x[k].data_ptr() == y[k].data_ptr() for x, y in zip(bo, so)
+                for k in ("exp_avg", "exp_avg_sq")):
+            raise AssertionError(f"pbt: policy {b} aliases its source")
+        pairs.append((b, src[0]))
+    print(f"[{card}] pbt round (objectives 0..7, replace fraction "
+          f"{runner.pbt_cfg.replace_fraction}): adoptee <- source {pairs}; "
+          "parameters and Adam moments and step equal bit for bit, in "
+          "tensors of their own")
+    turn("iterations after the round",
+         sorted({p for pair in pairs for p in pair}))
+    for b, s in pairs:
+        if equal(trainers[b], trainers[s]):
+            raise AssertionError(f"pbt: policy {b} still equals {s}")
+    print(f"[{card}] pbt: after one more iteration of each, every adoptee "
+          "differs from its source")
+    check = check_on_env_state(card, "pbt policy 0 state",
+                               trainers[0].env_states, env_cfg,
+                               trainers[0].dyn_params)
+    del runner, trainers
+    _free()
+
+    small = ["--num_policies=2", "--num_envs=32", "--rollout=16",
+             f"--train_for_env_steps={2 * 32 * 8 * 16}"]
+    out, secs = _train_cli(shlex.split(cmd)[3:] + small)
+    exp = Path(train_dir) / name
+    cps = {p: sorted(x.name for x in (exp / f"checkpoint_p{p}").iterdir())
+           for p in (0, 1)}
+    if cps != {p: [f"checkpoint_{32 * 8 * 16:012d}.pt"] for p in (0, 1)} or \
+            not all((exp / f"p{p}" / "metrics.jsonl").exists()
+                    for p in (0, 1)):
+        raise AssertionError(f"pbt CLI: checkpoints {cps}")
+    print(f"[{card}] pbt CLI (the run's command, 2 policies x 32 envs x 16 "
+          f"ticks, one iteration each): {secs:.1f} s (start-up included); "
+          f"checkpoints {cps}")
+    print(f"[{card}] pbt phase: {time.perf_counter() - t0:.1f} s")
+    return counts, check
+
+
 KERNELS = {
     "K1": ("dynamics", "quadswarm_tpu_torch/csrc/dynamics_kernel.cu",
            "quadswarm_tpu/ops/pallas/dynamics_kernel.py:98"),
@@ -1893,9 +2356,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="build,kernels,agree,rollout,swarm,sim,train,obst,"
-                            "eval",
+                            "eval,runs,appo,pbt",
                     help="comma-separated subset of build,kernels,agree,"
-                         "rollout,swarm,sim,train,obst,eval,profile,sweep "
+                         "rollout,swarm,sim,train,obst,eval,runs,appo,pbt,"
+                         "profile,sweep "
                          "(off by "
                          "default: "
                          "profile, a torch.profiler breakdown of a rollout; "
@@ -1904,11 +2368,12 @@ def main(argv=None) -> int:
                     help="with the profile phase: write its Chrome trace "
                          "to this path")
     ap.add_argument("--profile_path", default="flagship",
-                    choices=("flagship", "swarm", "train"),
+                    choices=("flagship", "swarm", "train", "final"),
                     help="with the profile phase: the rollout to profile, "
                          "1024 x 8 (flagship) or 256 x 128 with the pair "
-                         "kernels (swarm); or train.sh's Trainer, rollout "
-                         "ticks with replay and minibatch steps (train)")
+                         "kernels (swarm); or train.sh's Trainer (train) or "
+                         "the final obstacle run's (final), rollout ticks "
+                         "with replay and minibatch steps")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -1968,6 +2433,15 @@ def main(argv=None) -> int:
                 ("eval-32x8", "eval-obst-32x8"), phase_eval(card, train_dir)):
             launches[path] = counts
             checks["K1"].append(check)
+    if "runs" in phases:
+        launches["train-attn-obst-1024x8"], check = phase_runs(card)
+        checks["K1"].append(check)
+    if "appo" in phases:
+        launches["appo-1024x8"], check = phase_appo(card)
+        checks["K1"].append(check)
+    if "pbt" in phases:
+        launches["pbt-8x512x8"], check = phase_pbt(card, train_dir)
+        checks["K1"].append(check)
     workdir.cleanup()
     if "profile" in phases:
         phase_profile(card, args.trace, args.profile_path)

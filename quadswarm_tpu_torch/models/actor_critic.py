@@ -22,13 +22,16 @@ def set_float32_precision() -> None:
 
 
 class ActorCritic(nn.Module):
-    """forward(obs) -> (action_mean, log_std, value)."""
+    """forward(obs) -> (action_mean, log_std, value).  `obstacle_obs_dim`
+    is the width of the observation after the neighbour slice (the SDF's 9,
+    or 0 without obstacles); the 'attention' encoder type embeds it."""
 
     def __init__(self, action_dim: int = 4, self_obs_dim: int = 18,
                  neighbor_obs_dim: int = 6, num_neighbors: int = 6,
                  encoder_type: str = "corl",
                  neighbor_encoder_type: str = "attention",
                  neighbor_hidden: int = 256, use_obstacles: bool = False,
+                 obstacle_obs_dim: int = 9,
                  obstacle_hidden: int = 256, rnn_size: int = 256,
                  act: str = "tanh", sim2real: bool = False,
                  initial_stddev: float = 1.0, dtype=torch.float32,
@@ -43,12 +46,14 @@ class ActorCritic(nn.Module):
                    neighbor_encoder_type=neighbor_encoder_type,
                    neighbor_hidden=neighbor_hidden,
                    use_obstacles=use_obstacles,
+                   obstacle_obs_dim=obstacle_obs_dim,
                    obstacle_hidden=obstacle_hidden, rnn_size=rnn_size,
                    act=act, sim2real=sim2real)
         self.actor_encoder = make_encoder(encoder_type, **enc)
         self.critic_encoder = make_encoder(encoder_type, **enc)
-        self.action_head = _dense(2 * rnn_size, action_dim)
-        self.value_head = _dense(2 * rnn_size, 1)
+        # the heads' width is the encoder's, as flax's Dense infers it
+        self.action_head = _dense(self.actor_encoder.out_size, action_dim)
+        self.value_head = _dense(self.critic_encoder.out_size, 1)
         self.log_std = nn.Parameter(
             torch.full((action_dim,), math.log(initial_stddev)))
         self.to(device)

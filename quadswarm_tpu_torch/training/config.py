@@ -2,8 +2,9 @@
 
 Port of quadswarm_tpu/training/config.py: the same flags, names, defaults
 and choices (the reference's `--quads_*` flags plus the Sample Factory
-training flags its baselines set), so the command lines of `train.sh` and
-`train_local_obst.sh` parse unchanged, plus `--device` (default `cuda`);
+training flags its baselines set), so the command lines of `train.sh`,
+`train_local_obst.sh` and the run files (`runs/`) parse unchanged, plus
+`--device` (default `cuda`);
 with `evaluation=True` also the eval CLI's flags.  Flags of paths the port
 does not run yet raise NotImplementedError naming their ROADMAP.md item,
 rather than train something else.
@@ -268,9 +269,12 @@ def _resolve_compat_flags(args) -> argparse.Namespace:
                          "dynamics on CUDA go through the kernel K1 (auto, "
                          "true); --device=cpu runs the plain version")
     refused = (
-        ("--with_pbt with --num_policies > 1 (population-based training)",
-         args.with_pbt and args.num_policies > 1, 13),
-        ("--async_rl (APPO)", args.async_rl, 13),
+        ("--pbt_mix_policies_in_one_env (mixed-policy PBT)",
+         args.with_pbt and args.num_policies > 1
+         and args.pbt_mix_policies_in_one_env, 13),
+        # the JAX CLI parses it without a check
+        ("--appo_split_devices (APPO's rollout and learner on disjoint "
+         "devices)", bool(args.appo_split_devices), 14),
         ("--multi_host", args.multi_host, 14),
         (f"--quads_mode={args.quads_mode}",
          (args.quads_mode.startswith("o_")
@@ -352,9 +356,18 @@ def model_kwargs_from_args(args, env_cfg) -> dict:
 
 
 def model_from_args(args, env_cfg, device="cuda"):
+    """The model with fresh weights from torch's global generator.  Its
+    `obstacle_obs_dim` is the width of the observation after the neighbour
+    slice: the SDF's whenever the env has obstacles, which the 'attention'
+    encoder type embeds whatever --quads_obstacle_obs_type says."""
+    from quadswarm_tpu_torch.env.obs import OBSTACLE_OBS_SIZES
     from quadswarm_tpu_torch.models.actor_critic import ActorCritic
 
-    return ActorCritic(**model_kwargs_from_args(args, env_cfg), device=device)
+    return ActorCritic(
+        **model_kwargs_from_args(args, env_cfg),
+        obstacle_obs_dim=(OBSTACLE_OBS_SIZES["octomap"]
+                          if env_cfg.use_obstacles else 0),
+        device=device)
 
 
 def ppo_config_from_args(args):
@@ -382,6 +395,22 @@ def ppo_config_from_args(args):
         with_vtrace=args.with_vtrace,
         vtrace_rho=args.vtrace_rho,
         vtrace_c=args.vtrace_c,
+    )
+
+
+def pbt_config_from_args(args):
+    from quadswarm_tpu_torch.parallel.pbt import PBTConfig
+
+    return PBTConfig(
+        num_policies=args.num_policies,
+        period_env_steps=args.pbt_period_env_steps,
+        start_mutation=args.pbt_start_mutation,
+        replace_fraction=args.pbt_replace_fraction,
+        mutation_rate=args.pbt_mutation_rate,
+        replace_reward_gap=args.pbt_replace_reward_gap,
+        replace_reward_gap_absolute=args.pbt_replace_reward_gap_absolute,
+        perturb_range=(1.0 / args.pbt_perturb_max, args.pbt_perturb_max),
+        optimize_gamma=args.pbt_optimize_gamma,
     )
 
 

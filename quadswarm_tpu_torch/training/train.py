@@ -1,12 +1,19 @@
 """Training CLI: `python -m quadswarm_tpu_torch.training.train ...`
 
-Port of quadswarm_tpu/training/train.py, the synchronous PPO branch: it
-takes `train.sh`'s flags unchanged and trains on the CUDA device
-(`--device=cpu` runs the kernels' plain versions on the CPU).  It resumes
-from the experiment's latest checkpoint, logs windowed `perf/sps` and the
-episode stats every --log_every_iters iterations to `metrics.jsonl`, keeps
-a `best` checkpoint by the windowed mean of the episode `true_reward`, and
-saves every --save_every_sec seconds and at exit.
+Port of quadswarm_tpu/training/train.py: it takes the flags of `train.sh`,
+`train_local_obst.sh` and the run files (`runs/`) unchanged and trains on
+the CUDA device (`--device=cpu` runs the kernels' plain versions on the
+CPU).  Its branches, tested in the JAX CLI's order:
+- `--with_pbt=True --num_policies>1`: population-based training
+  (`parallel/pbt.py`), one `p{p}/metrics.jsonl` and one `checkpoint_p{p}`
+  a policy; `--async_rl` is then ignored, as in the JAX CLI;
+- `--async_rl=True`: APPO (`parallel/appo.py`) with `--policy_lag` and
+  `--with_vtrace`;
+- else synchronous PPO.
+The last two resume from the experiment's latest checkpoint, log windowed
+`perf/sps` and the episode stats every --log_every_iters iterations to
+`metrics.jsonl`, keep a `best` checkpoint by the windowed mean of the
+episode `true_reward`, and save every --save_every_sec seconds and at exit.
 
 Example (the 8-drone mix baseline):
     python -m quadswarm_tpu_torch.training.train \\
@@ -29,11 +36,13 @@ import torch
 
 def main(argv=None) -> int:
     from quadswarm_tpu_torch.env.params import make_dynamics_params
+    from quadswarm_tpu_torch.parallel.appo import APPOTrainer
+    from quadswarm_tpu_torch.parallel.pbt import PBTRunner
     from quadswarm_tpu_torch.parallel.ppo import Trainer
     from quadswarm_tpu_torch.training.config import (
         anneal_schedules_from_args, base_rew_coeff_from_args,
         env_config_from_args, model_from_args, parse_swarm_cfg,
-        ppo_config_from_args, save_cfg,
+        pbt_config_from_args, ppo_config_from_args, save_cfg,
     )
     from quadswarm_tpu_torch.utils.checkpoint import (
         checkpoint_dir, latest_checkpoint, load_checkpoint, save_checkpoint,
@@ -47,19 +56,41 @@ def main(argv=None) -> int:
     save_cfg(args, exp_dir)
 
     env_cfg = env_config_from_args(args)
+    ppo_cfg = ppo_config_from_args(args)
+    dyn = make_dynamics_params(dt=env_cfg.dt)
+    anneal = anneal_schedules_from_args(args)
+    base_coeff = base_rew_coeff_from_args(args)
+    if args.with_pbt and args.num_policies > 1:
+        runner = PBTRunner(env_cfg, ppo_cfg,
+                           lambda: model_from_args(args, env_cfg,
+                                                   device=device),
+                           dyn, pbt_config_from_args(args), seed=args.seed,
+                           anneal_schedules=anneal, exp_dir=exp_dir,
+                           base_rew_coeff=base_coeff, device=device)
+        runner.train(args.train_for_env_steps)
+        return 0
+
     torch.manual_seed(args.seed)
     model = model_from_args(args, env_cfg, device=device)
-    trainer = Trainer(env_cfg, ppo_config_from_args(args), model,
-                      make_dynamics_params(dt=env_cfg.dt), seed=args.seed,
-                      anneal_schedules=anneal_schedules_from_args(args),
-                      base_rew_coeff=base_rew_coeff_from_args(args),
-                      device=device)
+    if args.async_rl:
+        trainer = APPOTrainer(env_cfg, ppo_cfg, model, dyn, seed=args.seed,
+                              anneal_schedules=anneal,
+                              policy_lag=args.policy_lag,
+                              base_rew_coeff=base_coeff, device=device)
+    else:
+        trainer = Trainer(env_cfg, ppo_cfg, model, dyn, seed=args.seed,
+                          anneal_schedules=anneal, base_rew_coeff=base_coeff,
+                          device=device)
     cp_dir = checkpoint_dir(args.train_dir, args.experiment)
     cp = latest_checkpoint(cp_dir)
     if cp is not None:
         trainer.step, trainer.env_steps, trainer.norm_state = load_checkpoint(
             cp, trainer.model, trainer.optimizer, extra=trainer.norm_state,
             device=device)
+        if args.async_rl:
+            # the JAX CLI keeps the fresh weights in its behaviour queue
+            # here, so its first rollouts after a resume use them
+            trainer.restart_behavior_queue()
         print(f"resumed from {cp} at {trainer.env_steps} env steps",
               flush=True)
 
@@ -113,6 +144,8 @@ def main(argv=None) -> int:
                                  / max(now - last_t, 1e-9))
                 m["perf/rollout_s"] = trainer.seconds["rollout"]
                 m["perf/learner_s"] = trainer.seconds["learner"]
+                if "recompute" in trainer.seconds:          # APPO's learner
+                    m["perf/recompute_s"] = trainer.seconds["recompute"]
                 last_t, last_steps = now, trainer.env_steps
                 logger.log(trainer.env_steps, m)
                 print(f"steps={trainer.env_steps:,} "

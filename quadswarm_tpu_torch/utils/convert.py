@@ -26,12 +26,20 @@ _NESTED = {"dyn": DroneState, "scenario": ScenarioState,
            "rew_coeff": RewardCoeffs, "ep_checkpoints": EnvState,
            "buffer": EnvState, "obs": RunningMeanStd, "ret": RunningMeanStd}
 
+# flax's numbered names of single submodules -> the port's attribute names
+_RENAMED = {"MLP_0": "mlp", "LayerNorm_0": "layer_norm"}
+
 
 def actor_critic_from_flax(tree: dict) -> dict:
     """flax ActorCritic params -> a state_dict for the port's ActorCritic.
 
-    A flax `Dense_i` inside an MLP is `layers.i`; a Dense kernel (in, out)
-    becomes a Linear weight (out, in); a LayerNorm scale becomes weight."""
+    Every encoder type and neighbour encoder: the port's attribute names
+    are flax's module names (`self_embed`, `attention/w_qs`, ...), and this
+    renames the names flax numbers: a `Dense_i` inside an MLP is
+    `layers.i`, the unnamed `MLP_0` of the mean_embed and mlp neighbour
+    encoders is `mlp`, the attention block's `LayerNorm_0` is
+    `layer_norm`.  A Dense kernel (in, out) becomes a Linear weight
+    (out, in); a LayerNorm scale becomes weight."""
     tree = tree.get("params", tree)
     out = {}
 
@@ -39,7 +47,9 @@ def actor_critic_from_flax(tree: dict) -> dict:
         for key, val in node.items():
             if isinstance(val, dict):
                 m = re.fullmatch(r"Dense_(\d+)", key)
-                walk(val, prefix + (f"layers.{m.group(1)}" if m else key) + ".")
+                name = (f"layers.{m.group(1)}" if m
+                        else _RENAMED.get(key, key))
+                walk(val, prefix + name + ".")
                 continue
             arr = np.asarray(val, dtype=np.float32)
             if key == "kernel":

@@ -84,10 +84,11 @@ def test_log_prob_entropy_and_sampling_match_jax():
 
 
 def test_unported_variants_raise():
-    with pytest.raises(NotImplementedError):
-        t_ac.ActorCritic(**{**KW, "encoder_type": "attention"}, device="cpu")
-    with pytest.raises(NotImplementedError):
-        t_ac.ActorCritic(**{**KW, "neighbor_encoder_type": "mean_embed"},
-                         device="cpu")
+    """bfloat16 is not ported; the 'attention' encoder type without an
+    observation after the neighbour slice is refused (the JAX package fails
+    on it at init)."""
+    with pytest.raises(ValueError, match="ZeroDivisionError"):
+        t_ac.ActorCritic(**{**KW, "encoder_type": "attention"},
+                         obstacle_obs_dim=0, device="cpu")
     with pytest.raises(NotImplementedError):
         t_ac.ActorCritic(**KW, dtype=torch.bfloat16, device="cpu")

@@ -346,8 +346,9 @@ def test_train_sh_flags_parse_alike_in_both_packages(script):
 
 @pytest.mark.parametrize("extra,error", [
     (["--quads_use_pallas=false"], ValueError),
-    (["--with_pbt=True", "--num_policies=4"], NotImplementedError),
-    (["--async_rl=True"], NotImplementedError),
+    (["--with_pbt=True", "--num_policies=4",
+      "--pbt_mix_policies_in_one_env=True"], NotImplementedError),
+    (["--async_rl=True", "--appo_split_devices=1,1"], NotImplementedError),
     (["--multi_host=True"], NotImplementedError),
     (["--quads_mode=o_swap_goals"], NotImplementedError),
     (["--quads_mode=run_away"], NotImplementedError),
