@@ -29,7 +29,19 @@ Phases, each raising on failure:
   6. sim: `batched_env_step` with random actions at 4096 envs x 8 (mix) for
      ep_len + 2 ticks, through one auto-reset of every env; then K1 alone
      on the drone state the simulator reached;
-  7. train: the main path, train.sh's training: a `Trainer` built from
+  7. surface: the rest of the env.  K1's per-drone form (an 8-row table
+     from a RelativeSampler fleet and from a RandomQuad fleet) against its
+     plain version at B=8,192, in turns with the shared form; each control
+     mode for one tick of a 1024 x 8 fleet on the card against the CPU;
+     Mellinger flying 1024 x 8 drones to their goal for 400 ticks; the gym
+     API (`env/gym_api.py`) for one whole episode with auto-reset at
+     train.sh's config and with a per-drone fleet, one K1 launch a step,
+     the done step's stats keys equal to the CPU env's; the nine scenario
+     modes beyond the two mixes at 1024 x 8 with obstacles for 700 ticks
+     (events and obstacle hits by mode, one sync a tick); the env step on
+     the card against the CPU for 20 ticks spanning each new mode's first
+     event, and for a per-drone fleet;
+  8. train: the main path, train.sh's training: a `Trainer` built from
      train.sh's flags (1024 envs x 8, rollout 128, batch 1024, replay 0.75,
      annealing, downwash, the 256-wide attention model, TF32 off) for 3
      iterations, each with its rollout/learner split, losses, launches,
@@ -39,20 +51,20 @@ Phases, each raising on failure:
      fired; the
      learner on the card against the CPU; the train CLI with train.sh's
      flags for 1 iteration and a resume for a second;
-  8. obst: train_local_obst.sh's training, a `Trainer` built from its flags
+  9. obst: train_local_obst.sh's training, a `Trainer` built from its flags
      (1024 envs x 8 on the 8 x 8 obstacle grid, the SDF observation and the
      obstacle encoder, rollout 128, batch 1024, replay 0.75) for 2
      iterations with the same lines plus the obstacle hits; a reset tick of
      every env with obstacles, timed; `batched_replay_step` with obstacles
      on the card against the CPU (16 x 8); K1 on the state it reached;
-  9. eval: the eval CLI's `evaluate` with train.sh's flags plus
+ 10. eval: the eval CLI's `evaluate` with train.sh's flags plus
      `--eval_envs=32 --quads_mode=static_diff_goal --max_num_episodes=32
      --load_checkpoint_kind=best`, from a `best` checkpoint the train CLI
      wrote at a small width, each round with its wall time, ticks/s,
      launches, syncs and the success and deadlock rates; then one round
      with train_local_obst.sh's flags from the obst phase's checkpoint (or
      fresh weights); K1 on each round's final state;
- 10. runs: the run files.  Each port file's code is the JAX file's with
+ 11. runs: the run files.  Each port file's code is the JAX file's with
      the training module swapped (the JAX file parsed as text, never
      imported), and the launcher's dry backend expands every one; the final
      obstacle run (the first command of runs/obstacles/quads_multi_obstacles:
@@ -63,13 +75,13 @@ Phases, each raising on failure:
      on the card against the CPU; one iteration of each other run file at
      its own width with --rollout=16 (the depth cut is printed); the
      refusal of quad_multi_mix_baseline_attn_8; K1 on the final run's state;
- 11. appo: train.sh's flags plus --async_rl=True --policy_lag=1
+ 12. appo: train.sh's flags plus --async_rl=True --policy_lag=1
      --with_vtrace=True, full width, 3 iterations with the learner's
      recompute time, in turns with 2 of train.sh's sync-PPO iterations;
      the third iteration rolls out with the weights after the first; the
      learner's targets (V-trace and GAE) on the card against the CPU; K1
      on the state it reached;
- 12. pbt: runs/pbt_quads_multi_obstacles' command at full width (8 policies
+ 13. pbt: runs/pbt_quads_multi_obstacles' command at full width (8 policies
      x 512 envs x 8 x 128): one iteration of each, a round with injected
      objectives (policy p scores p) after which each adoptee's parameters
      and Adam state equal its source's bit for bit and differ after one
@@ -93,8 +105,8 @@ times K1's wrapper on the host by part at 32,768 drones, K2's at 256 envs
 x 128, and K3 on the device at k = 1, 6 and 16 at 256 envs x 128.
 
 Every line with a number carries the card's name and power limit.  The
-second-to-last line is the kernels' JSON record (all four kernels), the
-last line
+second-to-last line is the kernels' JSON record (all four kernels and
+K1's per-drone form), the last line
 {"ok": true, "device": {...}}.  Without a CUDA device, or without the
 port's package beside this script, it exits non-zero and prints no result.
 Imports nothing of JAX.
@@ -236,16 +248,18 @@ K1_FLOPS_ORTHO = 230
 K1_FLOPS_FLOOR = 70
 
 
-def k1_bound_ms(state, sim_steps: int, ortho_every: int) -> tuple:
+def k1_bound_ms(state, sim_steps: int, ortho_every: int,
+                table_bytes: int = 0) -> tuple:
     """Least time for one K1 launch on these inputs: the larger of bytes
-    over HBM bandwidth and operations over the float32 peak."""
+    over HBM bandwidth and operations over the float32 peak.  The
+    per-drone form also reads its parameter table once (`table_bytes`)."""
     import torch
     b = state.pos.shape[0]
     n_ortho = int(torch.sum(state.step_count + 1 >= ortho_every))
     n_floor = int(torch.sum(state.pos[:, 2] <= 0.1))
     flops = (sim_steps * b * K1_FLOPS_PER_SUBSTEP + n_ortho * K1_FLOPS_ORTHO
              + sim_steps * n_floor * K1_FLOPS_FLOOR)
-    t_bytes = b * K1_BYTES_PER_DRONE / HBM_BYTES_PER_S * 1e3
+    t_bytes = (b * K1_BYTES_PER_DRONE + table_bytes) / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -256,12 +270,13 @@ def check_dynamics_kernel(card: str, label: str, params, cfg, state, cmds,
     `ms` and `plain_ms` are per call, back to back, as the env step pays
     them; `device_ms` is K1's device time alone (CUDA graph replay)."""
     import torch
-    from quadswarm_tpu_torch.env.dynamics import dynamics_tick
     from quadswarm_tpu_torch.ops.kernels import dynamics_kernel as dk
     from quadswarm_tpu_torch.utils.struct import leaves
 
     b = state.pos.shape[0]
-    before = dk.dynamics_tick_fused.launches
+    dynamics_tick = dk.dynamics_tick_flat     # per-drone rows b % N
+    before = (dk.dynamics_tick_fused.launches,
+              dk.dynamics_tick_fused.per_drone_launches)
     got = dk.dynamics_tick_fused(params, cfg, state, cmds, ou, yaw)
     torch.cuda.synchronize()
     want = dynamics_tick(params, cfg, state, cmds, ou, yaw)
@@ -290,9 +305,13 @@ def check_dynamics_kernel(card: str, label: str, params, cfg, state, cmds,
         lambda: dk.dynamics_tick_fused(params, cfg, state, cmds, ou, yaw))
     plain_ms = cuda_time_ms(
         lambda: dynamics_tick(params, cfg, state, cmds, ou, yaw), 20)
-    dk.dynamics_tick_fused.launches = before   # comparisons do not count
+    # comparisons do not count
+    (dk.dynamics_tick_fused.launches,
+     dk.dynamics_tick_fused.per_drone_launches) = before
+    table_bytes = (dk.param_table(params, cfg).nbytes if params.per_drone
+                   else 0)
     bound_ms, bound_by = k1_bound_ms(state, cfg.sim_steps,
-                                     cfg.orthonormalize_every)
+                                     cfg.orthonormalize_every, table_bytes)
     threads = dk.block_threads()
     floor_ms = launch_floor_ms(card, f"K1 at B={b}", -(-b // threads), threads)
     tol = tol_all or DYN_TOL
@@ -700,30 +719,21 @@ def _to_cuda(x):
     return map_fields(lambda t: t.cuda(), x)
 
 
-def _agree_env_step(card: str, label: str, env_kw: dict, e: int,
-                    touch: bool) -> None:
-    """6 ticks of the env step on the card against the CPU, both started
-    from the CPU state each tick with the same draws.  With `touch`, drone
-    1 of every env starts inside drone 0's hitbox."""
+def _agree_ticks(card: str, label: str, cfg, params, states, ticks: int,
+                 gen, obstacles: bool = False) -> tuple:
+    """`ticks` ticks of the env step on the card against the CPU, both
+    started from the CPU state each tick with the same draws (random
+    actions of the config's action width).  Returns the largest float
+    difference and the CPU's last (state, info)."""
     import torch
-    from quadswarm_tpu_torch.env.multi import (
-        EnvConfig, batched_env_step, env_reset)
-    from quadswarm_tpu_torch.env.params import make_dynamics_params
+    from quadswarm_tpu_torch.env.multi import batched_env_step
     from quadswarm_tpu_torch.utils.struct import leaves
 
-    cfg = EnvConfig(**env_kw)
-    n = cfg.num_agents
-    params = make_dynamics_params(dt=cfg.dt)
-    gen = torch.Generator().manual_seed(7)
-    states, _ = env_reset(cfg, params, gen, e, device="cpu")
-    if touch:
-        pos = states.dyn.pos.clone()
-        pos[:, 1] = pos[:, 0] + torch.tensor([0.05, 0.0, 0.0])
-        states = states.replace(dyn=states.dyn.replace(pos=pos))
-    worst, collisions = 0.0, 0
-    for _ in range(6):
-        actions = torch.rand((e, n, 4), generator=gen) * 2 - 1
-        draws = _draws(e, n, gen)
+    e, n = states.tick.shape[0], cfg.num_agents
+    worst, info = 0.0, None
+    for _ in range(ticks):
+        actions = torch.rand((e, n, cfg.action_dim), generator=gen) * 2 - 1
+        draws = _draws(e, n, gen, obstacles)
         cpu = batched_env_step(cfg, params, states, actions, None, draws)
         gpu = batched_env_step(cfg, params, _to_cuda(states), actions.cuda(),
                                None, _to_cuda(draws))
@@ -736,13 +746,38 @@ def _agree_env_step(card: str, label: str, env_kw: dict, e: int,
                 tol = DYN_TOL_FIELD.get(name.split(".")[-1], STEP_TOL)
                 if not torch.allclose(g, c, **tol):
                     raise AssertionError(
-                        f"env step {name}: GPU and CPU differ by "
+                        f"{label}: env step {name}: GPU and CPU differ by "
                         f"{float((g - c).abs().max())}")
                 worst = max(worst, float((g - c).abs().max()))
             elif not torch.equal(g, c):
-                raise AssertionError(f"env step {name}: GPU and CPU differ")
-        states = cpu[0]
-        collisions = int(cpu[4]["num_collisions"].sum())
+                raise AssertionError(f"{label}: env step {name}: GPU and CPU "
+                                     "differ")
+        states, info = cpu[0], cpu[4]
+    return worst, states, info
+
+
+def _agree_env_step(card: str, label: str, env_kw: dict, e: int,
+                    touch: bool, params=None) -> None:
+    """6 ticks of the env step on the card against the CPU, both started
+    from the CPU state each tick with the same draws.  With `touch`, drone
+    1 of every env starts inside drone 0's hitbox.  `params`: the
+    config's shared Crazyflie parameters unless given."""
+    import torch
+    from quadswarm_tpu_torch.env.multi import EnvConfig, env_reset
+    from quadswarm_tpu_torch.env.params import make_dynamics_params
+
+    cfg = EnvConfig(**env_kw)
+    n = cfg.num_agents
+    if params is None:
+        params = make_dynamics_params(dt=cfg.dt)
+    gen = torch.Generator().manual_seed(7)
+    states, _ = env_reset(cfg, params, gen, e, device="cpu")
+    if touch:
+        pos = states.dyn.pos.clone()
+        pos[:, 1] = pos[:, 0] + torch.tensor([0.05, 0.0, 0.0])
+        states = states.replace(dyn=states.dyn.replace(pos=pos))
+    worst, _, info = _agree_ticks(card, label, cfg, params, states, 6, gen)
+    collisions = int(info["num_collisions"].sum())
     if touch and collisions < e:
         raise AssertionError(f"{label}: {collisions} collisions in {e} envs")
     print(f"[{card}] env step GPU vs CPU, {label}, {e}x{n}, 6 ticks: "
@@ -890,7 +925,7 @@ def phase_rollout(card: str) -> tuple:
     counts = _read_counts()
     launches = counts["K1"]
 
-    if counts != {"K1": t, "K2": 0, "K3": 0, "K4": 0}:
+    if counts != _counts(K1=t):
         raise AssertionError(f"flagship rollout launches {counts} in {t} "
                              "ticks (dense route: K1 only)")
     for name, x in traj._asdict().items():
@@ -1040,15 +1075,24 @@ def _reset_counts() -> None:
     for fn in (dk.dynamics_tick_fused, si.pair_collisions,
                si.neighbor_topk_obs, si.swarm_interactions):
         fn.launches = 0
+    dk.dynamics_tick_fused.per_drone_launches = 0
 
 
 def _read_counts() -> dict:
+    """Every kernel's launches since `_reset_counts`: K1 by its two forms
+    (K1 shared parameters, K1pd the per-drone table), K2, K3, K4."""
     from quadswarm_tpu_torch.ops.kernels import dynamics_kernel as dk
     from quadswarm_tpu_torch.ops.kernels import swarm_interactions as si
     return {"K1": dk.dynamics_tick_fused.launches,
+            "K1pd": dk.dynamics_tick_fused.per_drone_launches,
             "K2": si.pair_collisions.launches,
             "K3": si.neighbor_topk_obs.launches,
             "K4": si.swarm_interactions.launches}
+
+
+def _counts(**launches) -> dict:
+    """A launch-count record with the given counts and 0 elsewhere."""
+    return {kid: launches.get(kid, 0) for kid in KERNELS}
 
 
 def _swarm_sim(card: str, label: str, env_kw: dict, ticks: int) -> None:
@@ -1125,7 +1169,7 @@ def phase_swarm(card: str) -> tuple:
     elapsed = time.perf_counter() - t0
     counts = _read_counts()
 
-    want = {"K1": t, "K2": t, "K3": t, "K4": 0}
+    want = _counts(K1=t, K2=t, K3=t)
     if counts != want:
         raise AssertionError(f"swarm rollout launches {counts}, expected "
                              f"{want} in {t} ticks")
@@ -1313,7 +1357,7 @@ def _iterations(card: str, label: str, trainer, iters: int) -> tuple:
     e, n, t = ppo.num_envs, cfg.num_agents, ppo.rollout
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    total = {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+    total = _counts()
     walls = []
     for it in range(iters):
         before = [p.detach().clone() for p in trainer.model.parameters()]
@@ -1326,7 +1370,7 @@ def _iterations(card: str, label: str, trainer, iters: int) -> tuple:
         counts = _read_counts()
         for kid in total:
             total[kid] += counts[kid]
-        if counts != {"K1": t, "K2": 0, "K3": 0, "K4": 0}:
+        if counts != _counts(K1=t):
             raise AssertionError(f"{label} iteration {it}: launches {counts},"
                                  f" expected K1 {t}")
         m = {k: float(v) for k, v in metrics.items()}
@@ -1815,7 +1859,7 @@ def _eval_round(card: str, label: str, argv: list) -> tuple:
     if not all(math.isfinite(v) for ep in result.episodes
                for v in ep.values()):
         raise AssertionError(f"{label}: a stat is not finite")
-    if counts != {"K1": ticks, "K2": 0, "K3": 0, "K4": 0}:
+    if counts != _counts(K1=ticks):
         raise AssertionError(f"{label}: launches {counts} in {ticks} ticks")
     rnd = result.round_seconds[0]
     print(f"[{card}] eval {label}: {len(result.episodes)} episodes of "
@@ -2144,7 +2188,7 @@ def phase_appo(card: str) -> tuple:
             not trainer.ppo_cfg.with_vtrace:
         raise AssertionError("not train.sh's APPO with V-trace at lag 1")
     sync = _flagship_trainer()
-    counts = {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+    counts = _counts()
     walls = {"appo": [], "sync": []}
     after_first = {}
     for it in range(APPO_ITERS):
@@ -2236,7 +2280,7 @@ def phase_pbt(card: str, train_dir: str) -> tuple:
         torch.cuda.synchronize()
         secs = time.perf_counter() - t1
         counts = _read_counts()
-        if counts != {"K1": len(policies) * t, "K2": 0, "K3": 0, "K4": 0}:
+        if counts != _counts(K1=len(policies) * t):
             raise AssertionError(f"pbt {label}: launches {counts}")
         print(f"[{card}] pbt {label}: {len(policies)} iterations of "
               f"{e}x{n} x {t} in {secs:.3f} s "
@@ -2306,9 +2350,323 @@ def phase_pbt(card: str, train_dir: str) -> tuple:
     return counts, check
 
 
+# ---------------------------------------------------------------------------
+# The rest of the env: per-drone fleets through K1, the controllers, the gym
+# API, the scenario modes beyond the two mixes
+# ---------------------------------------------------------------------------
+
+SURFACE_B = 8192
+PER_DRONE_FLEETS = (("RelativeSampler 0.2",
+                     {"class": "RelativeSampler", "noise_ratio": 0.2}),
+                    ("RandomQuad", {"class": "RandomQuad"}))
+NEW_MODES = ("run_away", "o_dynamic_same_goal", "o_swap_goals",
+             "o_ep_rand_bezier", "o_uniform_same_goal_spawn", "o_diagonal",
+             "o_static_diff_goal", "o_dynamic_diff_goal", "o_test")
+# The new modes with events, and those with an obstacle grid at reset.
+EVENT_MODES = ("run_away", "o_dynamic_same_goal", "o_swap_goals",
+               "o_ep_rand_bezier", "o_dynamic_diff_goal", "o_test")
+MODE_ENVS = 1024
+MODE_TICKS = 700
+PROBE_TICKS = 400
+
+
+def _k1_forms(card: str) -> tuple:
+    """K1's per-drone form at B=8,192 (an 8-row table from each fleet of
+    PER_DRONE_FLEETS) against its plain version, in turns with the shared
+    form on the same batch: shared, per-drone, per-drone, shared."""
+    import torch
+    from quadswarm_tpu_torch.env.dynamics import DynamicsConfig
+    from quadswarm_tpu_torch.env.params import make_dynamics_params
+
+    shared = make_dynamics_params()
+    cfg = DynamicsConfig(floor_threshold=float(shared.arm))
+    gen = torch.Generator("cuda").manual_seed(40)
+    batch = random_drone_batch(SURFACE_B, cfg, gen, torch.device("cuda"))
+    shared_checks = [check_dynamics_kernel(
+        card, "shared form, in turns with the per-drone form (1 of 2)",
+        shared, cfg, *batch)]
+    per_drone = []
+    for label, sampler in PER_DRONE_FLEETS:
+        fleet = make_dynamics_params(num_agents=8, per_drone=True, seed=1,
+                                     dyn_sampler_1=sampler)
+        per_drone.append(check_dynamics_kernel(
+            card, f"per-drone form, {label} table of 8 rows", fleet, cfg,
+            *batch))
+    shared_checks.append(check_dynamics_kernel(
+        card, "shared form, in turns with the per-drone form (2 of 2)",
+        shared, cfg, *batch))
+    us = lambda cs: ", ".join(f"{c['device_ms'] * 1e3:.2f}" for c in cs)
+    print(f"[{card}] K1 at B={SURFACE_B} in turns: shared form device "
+          f"{us(shared_checks)} us, per-drone form device {us(per_drone)} us")
+    return shared_checks, per_drone
+
+
+def _control_modes(card: str) -> None:
+    """Each control mode for one tick of a 1024 x 8 fleet on the card
+    against the CPU; then Mellinger flying the fleet to its goal at
+    static_same_goal for PROBE_TICKS ticks on the card."""
+    import torch
+    from quadswarm_tpu_torch.env.controls import CONTROL_MODES
+    from quadswarm_tpu_torch.env.multi import (
+        EnvConfig, batched_env_step, env_reset)
+    from quadswarm_tpu_torch.env.params import make_dynamics_params
+
+    for mode in CONTROL_MODES:
+        cfg = EnvConfig(**{**FLAGSHIP_ENV, "control_mode": mode})
+        params = make_dynamics_params(dt=cfg.dt)
+        gen = torch.Generator().manual_seed(9)
+        states, _ = env_reset(cfg, params, gen, 1024, device="cpu")
+        worst, _, _ = _agree_ticks(card, f"control mode {mode}", cfg, params,
+                                   states, 1, gen)
+        print(f"[{card}] control mode {mode}: env step GPU vs CPU at "
+              f"1024x8, 1 tick: max_abs_err {worst:.3g} (rtol "
+              f"{STEP_TOL['rtol']}, atol {STEP_TOL['atol']})")
+
+    cfg = EnvConfig(**{**FLAGSHIP_ENV, "quads_mode": "static_same_goal",
+                       "control_mode": "mellinger"})
+    params = make_dynamics_params(dt=cfg.dt)
+    gen = torch.Generator("cuda").manual_seed(11)
+    states, _ = env_reset(cfg, params, gen, 1024, device="cuda")
+    dist = lambda s: float(torch.linalg.vector_norm(
+        s.dyn.pos - s.scenario.goals, dim=-1).mean())
+    d0 = dist(states)
+    zero = torch.zeros((1024, 8, 4), device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(PROBE_TICKS):
+        states, *_ = batched_env_step(cfg, params, states, zero, gen)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    d1 = dist(states)
+    print(f"[{card}] Mellinger probe, static_same_goal, 1024x8: mean goal "
+          f"distance {d0:.3f} m -> {d1:.3f} m in {PROBE_TICKS} ticks "
+          f"({secs / PROBE_TICKS * 1e3:.2f} ms a tick)")
+    # the mean falls by a quarter at least (8 drones crowd one goal point,
+    # so collisions and downwash keep them apart)
+    if not d1 < 0.75 * d0:
+        raise AssertionError("Mellinger did not bring the fleet to its goal")
+
+
+def _stats_keys(stats: dict) -> tuple:
+    """(the unprefixed keys, the keys of the scenario-prefixed copies with
+    the prefix taken off) of an `episode_extra_stats` dict."""
+    from quadswarm_tpu_torch.env.scenarios import MODES
+    prefixed = {k.split("/", 1)[1] for k in stats
+                if k.split("/", 1)[0] in MODES}
+    plain = {k for k in stats if k.split("/", 1)[0] not in MODES}
+    return plain, prefixed
+
+
+def _gym_episode(card: str, label: str, make, form: str) -> dict:
+    """One whole episode of random actions through `step(list)` on the
+    card, of the env `make(device)` builds: ep_len + 1 steps (the last one
+    ends the episode and auto-resets) and one more.  Checks one launch of
+    K1's `form` a step and that the done step's stats keys equal those of
+    the same env on the CPU at a done.  Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    env = make("cuda")
+    cfg = env.cfg
+    steps = cfg.ep_len + 2
+    rng = np.random.default_rng(0)
+    acts = rng.uniform(-1, 1, (steps, cfg.num_agents, cfg.action_dim)).astype(
+        np.float32)
+    env.reset(seed=0)
+    torch.cuda.synchronize()
+    _reset_counts()
+    done_at, stats = [], None
+    t0 = time.perf_counter()
+    with SyncCounter() as syncs:
+        for k in range(steps):
+            obs, rew, done, infos = env.step(list(acts[k]))
+            if any(done):
+                done_at.append(k + 1)
+                stats = infos[0]["episode_extra_stats"]
+    secs = time.perf_counter() - t0
+    counts = _read_counts()
+    if counts != _counts(**{form: steps}):
+        raise AssertionError(f"gym API {label}: launches {counts} in {steps} "
+                             "steps")
+    if done_at != [cfg.ep_len + 1] or not np.isfinite(np.stack(obs)).all():
+        raise AssertionError(f"gym API {label}: done at steps {done_at}")
+    # the CPU env of the same config, one step from its episode's end
+    cpu = make("cpu")
+    cpu.reset(seed=0)
+    cpu._state = cpu._state.replace(
+        tick=torch.full_like(cpu._state.tick, cfg.ep_len))
+    _, _, cpu_done, cpu_infos = cpu.step(list(acts[0]))
+    plain, prefixed = _stats_keys(stats)
+    cpu_plain, cpu_prefixed = _stats_keys(cpu_infos[0]["episode_extra_stats"])
+    if not (all(cpu_done) and plain == prefixed == cpu_plain == cpu_prefixed):
+        raise AssertionError(f"gym API {label}: stats keys {sorted(plain)} "
+                             f"against the CPU's {sorted(cpu_plain)}")
+    print(f"[{card}] gym API, {label}: {steps} steps of 1x{cfg.num_agents} "
+          f"in {secs:.3f} s ({steps / secs:.1f} steps/s), done at step "
+          f"{done_at[0]} with auto-reset; {form} launches {counts[form]}; "
+          f"{syncs.implicit} device-to-host syncs "
+          f"({syncs.implicit / steps:.2f} a step); {len(stats)} "
+          f"episode_extra_stats keys, equal to the CPU env's "
+          f"({len(plain)} and their scenario-prefixed copies)")
+    return counts
+
+
+def _new_modes(card: str) -> dict:
+    """The nine modes beyond the two mixes at MODE_ENVS x 8 with obstacles
+    (train_local_obst.sh's grid), a mode per env, MODE_TICKS ticks of
+    random actions: events fired by mode (each event mode's above 0) and
+    obstacle hits (each obstacle mode's above 0), goals in the room, one
+    device-to-host sync a tick.  Returns the launch counts."""
+    import torch
+    from quadswarm_tpu_torch.env.multi import (
+        EnvConfig, batched_env_step, env_reset)
+    from quadswarm_tpu_torch.env.params import make_dynamics_params
+    from quadswarm_tpu_torch.env.scenarios import MODE_IDS
+
+    cfg = EnvConfig(**OBST_ENV)
+    params = make_dynamics_params(dt=cfg.dt)
+    ids = torch.tensor([MODE_IDS[m] for m in NEW_MODES], device="cuda")
+    modes = ids[torch.arange(MODE_ENVS, device="cuda") % len(NEW_MODES)]
+    gen = torch.Generator("cuda").manual_seed(12)
+    t0 = time.perf_counter()
+    states, obs = env_reset(cfg, params, gen, MODE_ENVS, device="cuda",
+                            mode=modes)
+    torch.cuda.synchronize()
+    reset_s = time.perf_counter() - t0
+    _reset_counts()
+    t0 = time.perf_counter()
+    with SyncCounter() as syncs:
+        for _ in range(MODE_TICKS):
+            actions = torch.rand((MODE_ENVS, 8, 4), generator=gen,
+                                 device="cuda") * 2 - 1
+            states, obs, rew, done, info = batched_env_step(
+                cfg, params, states, actions, gen)
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = _read_counts()
+    if counts != _counts(K1=MODE_TICKS):
+        raise AssertionError(f"new modes: launches {counts}")
+    if syncs.implicit != MODE_TICKS:
+        raise AssertionError(f"new modes: {syncs.implicit} syncs in "
+                             f"{MODE_TICKS} ticks at {syncs.by_site}")
+    goals = states.scenario.goals
+    lo = torch.tensor(cfg.room_box[0], device="cuda")
+    hi = torch.tensor(cfg.room_box[1], device="cuda")
+    if not (torch.isfinite(goals).all() and (goals >= lo).all()
+            and (goals <= hi).all() and torch.isfinite(obs).all()):
+        raise AssertionError("new modes: goals outside the room")
+    events = torch.zeros(len(NEW_MODES), dtype=torch.int64, device="cuda")
+    hits = torch.zeros_like(events)
+    slot = torch.arange(MODE_ENVS, device="cuda") % len(NEW_MODES)
+    events.index_add_(0, slot, states.scenario.event_count.long())
+    hits.index_add_(0, slot, states.obst_collisions_per_episode.long())
+    envs = torch.bincount(slot.cpu(), minlength=len(NEW_MODES)).tolist()
+    events, hits = events.tolist(), hits.tolist()
+    for name, n_env, ev, hit in zip(NEW_MODES, envs, events, hits):
+        print(f"[{card}] mode {name}: {n_env} envs, {ev} events fired, {hit} "
+              f"obstacle hits in {MODE_TICKS} ticks")
+        if (n_env < 100 or (name in EVENT_MODES and ev <= 0)
+                or (name.startswith("o_") and hit <= 0)):
+            raise AssertionError(f"mode {name}: {n_env} envs, {ev} events, "
+                                 f"{hit} hits")
+    print(f"[{card}] new modes at {MODE_ENVS}x8 with obstacles: reset "
+          f"{reset_s:.3f} s, {MODE_TICKS} ticks in {secs:.3f} s "
+          f"({secs / MODE_TICKS * 1e3:.2f} ms a tick, "
+          f"{MODE_TICKS * MODE_ENVS * 8 / secs:,.0f} agent-steps/s); K1 "
+          f"launches {counts['K1']}; {syncs.implicit} device-to-host syncs "
+          f"({syncs.implicit / MODE_TICKS:.2f} a tick); goals in the room")
+    return counts
+
+
+def _agree_new_modes(card: str) -> None:
+    """The env step on the card against the CPU for 20 ticks spanning each
+    new mode's first event (2 envs a mode, each env started 10 ticks
+    before its event), with the obstacle response's draws; then a
+    per-drone fleet at train.sh's env for 6 ticks."""
+    import torch
+    from quadswarm_tpu_torch.env.multi import EnvConfig, env_reset
+    from quadswarm_tpu_torch.env.params import make_dynamics_params
+    from quadswarm_tpu_torch.env.scenarios import MODE_IDS
+
+    cfg = EnvConfig(**OBST_ENV)
+    params = make_dynamics_params(dt=cfg.dt)
+    gen = torch.Generator().manual_seed(13)
+    modes = torch.tensor([MODE_IDS[m] for m in NEW_MODES]).repeat(2)
+    states, _ = env_reset(cfg, params, gen, modes.shape[0], device="cpu",
+                          mode=modes)
+    iv = states.scenario.interval
+    first = torch.where(modes == MODE_IDS["run_away"], 100, torch.where(
+        modes == MODE_IDS["o_test"], iv + 1, torch.where(
+            (modes == MODE_IDS["o_dynamic_same_goal"])
+            | (modes == MODE_IDS["o_ep_rand_bezier"]), 1, iv)))
+    start = torch.clamp(first - 10, min=0).to(torch.int32)
+    states = states.replace(tick=start)
+    before = states.scenario.event_count.clone()
+    worst, states, _ = _agree_ticks(card, "new modes", cfg, params, states,
+                                    20, gen, obstacles=True)
+    fired = states.scenario.event_count - before
+    for name in EVENT_MODES:
+        if int(fired[modes == MODE_IDS[name]].min()) < 1:
+            raise AssertionError(f"{name}: no event in the 20 ticks")
+    print(f"[{card}] env step GPU vs CPU, the nine new modes with obstacles, "
+          f"{modes.shape[0]}x8, 20 ticks spanning each mode's first event: "
+          f"max_abs_err {worst:.3g} (rtol {STEP_TOL['rtol']}, atol "
+          f"{STEP_TOL['atol']}), events fired {fired.tolist()}")
+    fleet = make_dynamics_params(
+        num_agents=8, per_drone=True, seed=3,
+        dyn_sampler_1={"class": "RelativeSampler", "noise_ratio": 0.2})
+    _agree_env_step(card, "per-drone fleet (RelativeSampler 0.2)",
+                    FLAGSHIP_ENV, 16, touch=True, params=fleet)
+
+
+def phase_surface(card: str) -> tuple:
+    """The rest of the env: K1's per-drone form against its plain version,
+    in turns with the shared form; every control mode on the card against
+    the CPU and the Mellinger probe; the gym API through one whole episode
+    at train.sh's config and with a per-drone fleet; the nine new scenario
+    modes at 1024 x 8; the env step on the card against the CPU for the
+    new modes and a per-drone fleet.  Returns (launch counts by path,
+    K1's checks by form)."""
+    import torch
+    from quadswarm_tpu_torch.env.gym_api import (
+        QuadrotorEnvMulti, make_quadrotor_env_multi)
+    from quadswarm_tpu_torch.training import config as C
+
+    t0 = time.perf_counter()
+    shared, per_drone = _k1_forms(card)
+    _control_modes(card)
+    launches = {}
+    env = make_quadrotor_env_multi(C.parse_swarm_cfg(train_sh_flags()))
+    if (env.cfg.num_agents, env.cfg.quads_mode, env.cfg.use_downwash,
+            env.device.type) != (8, "mix", True, "cuda"):
+        raise AssertionError("the gym API's env is not train.sh's on the card")
+    launches["gym-1x8"] = _gym_episode(
+        card, "train.sh's config", lambda d: make_quadrotor_env_multi(
+            C.parse_swarm_cfg(train_sh_flags() + [f"--device={d}"])).env,
+        "K1")
+    fleet = lambda d: QuadrotorEnvMulti(
+        num_agents=8, quads_mode="mix", neighbor_visible_num=6,
+        use_downwash=True, seed=1, device=d,
+        dyn_sampler_1={"class": "RelativeSampler", "noise_ratio": 0.2})
+    if not fleet("cpu").params.per_drone:
+        raise AssertionError("not a per-drone fleet")
+    launches["gym-perdrone-1x8"] = _gym_episode(
+        card, "per-drone fleet (RelativeSampler 0.2)", fleet, "K1pd")
+    launches["modes-1024x8"] = _new_modes(card)
+    _agree_new_modes(card)
+    torch.cuda.synchronize()
+    print(f"[{card}] surface phase: {time.perf_counter() - t0:.1f} s")
+    return launches, {"K1": shared, "K1pd": per_drone}
+
+
 KERNELS = {
     "K1": ("dynamics", "quadswarm_tpu_torch/csrc/dynamics_kernel.cu",
            "quadswarm_tpu/ops/pallas/dynamics_kernel.py:98"),
+    # K1's per-drone form (a table of per-drone parameters), which the TPU
+    # kernel lacks: the JAX package integrates randomized fleets with XLA.
+    "K1pd": ("dynamics_per_drone",
+             "quadswarm_tpu_torch/csrc/dynamics_kernel.cu",
+             "quadswarm_tpu/ops/pallas/dynamics_kernel.py:98"),
     "K2": ("pair_collisions",
            "quadswarm_tpu_torch/csrc/swarm_interactions.cu",
            "quadswarm_tpu/ops/pallas/swarm_interactions.py:188"),
@@ -2355,11 +2713,11 @@ def kernel_records(checks: dict, launches: dict) -> list:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="build,kernels,agree,rollout,swarm,sim,train,obst,"
-                            "eval,runs,appo,pbt",
+                    default="build,kernels,agree,rollout,swarm,sim,surface,"
+                            "train,obst,eval,runs,appo,pbt",
                     help="comma-separated subset of build,kernels,agree,"
-                         "rollout,swarm,sim,train,obst,eval,runs,appo,pbt,"
-                         "profile,sweep "
+                         "rollout,swarm,sim,surface,train,obst,eval,runs,"
+                         "appo,pbt,profile,sweep "
                          "(off by "
                          "default: "
                          "profile, a torch.profiler breakdown of a rollout; "
@@ -2417,6 +2775,11 @@ def main(argv=None) -> int:
             checks[kid].insert(0, check)
     if "sim" in phases:
         checks["K1"].append(phase_sim(card))
+    if "surface" in phases:
+        surface_launches, by_form = phase_surface(card)
+        launches.update(surface_launches)
+        for kid, form_checks in by_form.items():
+            checks[kid] += form_checks
     import tempfile
     workdir = tempfile.TemporaryDirectory()
     train_dir = workdir.name

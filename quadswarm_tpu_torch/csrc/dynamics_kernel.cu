@@ -48,6 +48,15 @@
 //  - Fields keep their natural row-major layouts (no packing into planes,
 //    which on this card would be two extra passes over the same bytes); the
 //    44 shared parameters travel by value in the launch arguments.
+//  - Per-drone parameters (a randomized fleet, which the TPU kernel never
+//    receives: the JAX package integrates such fleets with XLA) come as a
+//    (rows, N_PARAMS) float32 table in device memory, and drone b reads row
+//    b % rows: the batch is env-major, so row i is drone i of every env.
+//    A template flag picks the form at compile time, so the shared form's
+//    code and its by-value launch are the same as without the table.  The
+//    table is at most a few KB and every block reads the same rows, so
+//    after the first block it is served from L1/L2: 176 bytes a drone more
+//    to read from cache, not from device memory at rows << B.
 //
 // Precision: IEEE sqrtf and division (no --use_fast_math); nvcc's default
 // FMA contraction is accepted.
@@ -133,9 +142,10 @@ __device__ __forceinline__ void store4(float* __restrict__ base, int i,
   reinterpret_cast<float4*>(base)[i] = make_float4(v[0], v[1], v[2], v[3]);
 }
 
+template <bool kPerDrone>
 __global__ void __launch_bounds__(kThreads)
-dynamics_kernel(const Params prm, int sim_steps, int ortho_every, int n,
-                const Io io) {
+dynamics_kernel(const Params prm, const float* __restrict__ table, int rows,
+                int sim_steps, int ortho_every, int n, const Io io) {
   __shared__ float4 stage4[kStageOut * kThreads / 4];
   float* const out_stage = reinterpret_cast<float*>(stage4);
   const int first = blockIdx.x * kThreads;     // this block's first drone
@@ -153,7 +163,8 @@ dynamics_kernel(const Params prm, int sim_steps, int ortho_every, int n,
   float* const rot_damp_o = cmds_damp_o + span4;
 
   if (tid < count) {
-    const float* p = prm.v;
+    const float* p = kPerDrone ? table + static_cast<size_t>(i % rows) * N_PARAMS
+                               : prm.v;
     const float dt = p[P_DT];
 
     // Every load is sent before the first use, so one memory latency is
@@ -394,17 +405,23 @@ __global__ void noop_kernel() {}
 extern "C" {
 
 // Launches the kernel on `stream` and returns cudaGetLastError() (0 on
-// success).  `host_params` points to N_PARAMS
-// floats in host memory; they are copied into the launch arguments.  `ptrs`
-// holds the 14 device pointers in the order of struct Io: the 11 inputs,
-// then the float, bool and int32 output arenas.  thrust_cmds_damp,
-// thrust_rot_damp, thrust_cmds, ou and the float arena must be 16-byte
-// aligned.
-int qs_dynamics_step(const float* host_params, int sim_steps,
-                     int ortho_every, int n, void* const* ptrs,
-                     void* stream) {
-  Params prm;
-  for (int k = 0; k < N_PARAMS; ++k) prm.v[k] = host_params[k];
+// success).  Shared parameters: `host_params` points to N_PARAMS floats in
+// host memory, copied into the launch arguments, and `table` is null.
+// Per-drone parameters: `table` points to a (rows, N_PARAMS) float32 table
+// in device memory, drone b reads row b % rows, and `host_params` is not
+// read.  `ptrs` holds the 14 device pointers in the order of struct Io:
+// the 11 inputs, then the float, bool and int32 output arenas.
+// thrust_cmds_damp, thrust_rot_damp, thrust_cmds, ou and the float arena
+// must be 16-byte aligned.
+int qs_dynamics_step(const float* host_params, const float* table, int rows,
+                     int sim_steps, int ortho_every, int n,
+                     void* const* ptrs, void* stream) {
+  Params prm = {};
+  if (table == nullptr) {
+    for (int k = 0; k < N_PARAMS; ++k) prm.v[k] = host_params[k];
+  } else if (rows <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   Io io;
   io.pos = static_cast<const float*>(ptrs[0]);
   io.vel = static_cast<const float*>(ptrs[1]);
@@ -422,8 +439,13 @@ int qs_dynamics_step(const float* host_params, int sim_steps,
   io.out_i = static_cast<int32_t*>(ptrs[13]);
   if (n > 0) {
     const int blocks = (n + kThreads - 1) / kThreads;
-    dynamics_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        prm, sim_steps, ortho_every, n, io);
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (table == nullptr)
+      dynamics_kernel<false><<<blocks, kThreads, 0, s>>>(
+          prm, nullptr, 1, sim_steps, ortho_every, n, io);
+    else
+      dynamics_kernel<true><<<blocks, kThreads, 0, s>>>(
+          prm, table, rows, sim_steps, ortho_every, n, io);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -5,6 +5,11 @@ sub-step over any leading batch shape; every data-dependent branch (motor
 tau, floor contact, room clip) is a `torch.where`.  It is the plain version
 the fused CUDA kernel (ops/kernels/dynamics_kernel.py) is held to.
 
+Parameters: shared (0-d and small fields) or per drone, with a leading
+axis N that broadcasts against the state's agent axis: a state (E, N, ...)
+or (N, ...) flies drone i with row i.  A parameter that scales a vector
+field is indexed `[..., None]` so that both forms broadcast.
+
 Randomness: `ou_noise_step` and `dynamics_step` take their draws as optional
 tensors (standard normals for the OU noise, the crash-yaw angle) and draw
 them from the caller's `torch.Generator` only when they are not given.
@@ -99,7 +104,7 @@ def ou_noise_step(ou_state: torch.Tensor, thrust_noise_ratio,
 
 
 def _floor_interaction(p, cfg: DynamicsConfig, pos, vel, rot, omega,
-                       cmds_damp, rot_damp, on_floor, thrust_total,
+                       cmds_damp, rot_damp, on_floor, force,
                        rand_yaw_theta):
     """Floor contact state machine: A below & on_floor (yaw-flatten, Coulomb
     friction), B below & !on_floor (crash landing), C above (free flight)."""
@@ -110,7 +115,6 @@ def _floor_interaction(p, cfg: DynamicsConfig, pos, vel, rot, omega,
     floor_z = torch.full_like(pos[..., 2], cfg.floor_threshold)
     pos = torch.cat([pos[..., :2],
                      torch.where(below, floor_z, pos[..., 2])[..., None]], -1)
-    force = rot[..., :, 2] * thrust_total[..., None]      # R @ [0, 0, T]
 
     theta = torch.atan2(rot[..., 1, 0], rot[..., 0, 0] + EPS)
     flat_rot = yaw_rot(theta)
@@ -149,7 +153,7 @@ def _floor_interaction(p, cfg: DynamicsConfig, pos, vel, rot, omega,
     cmds_damp = torch.where(b3, torch.zeros_like(cmds_damp), cmds_damp)
     rot_damp = torch.where(b3, torch.zeros_like(rot_damp), rot_damp)
 
-    acc = force / p.mass
+    acc = force / p.mass[..., None]
     acc = torch.cat([acc[..., :2], (-GRAV + acc[..., 2:])], -1)
     acc_floor_z = torch.where(below, torch.clamp(acc[..., 2], min=0.0),
                               acc[..., 2])
@@ -157,24 +161,54 @@ def _floor_interaction(p, cfg: DynamicsConfig, pos, vel, rot, omega,
     return pos, vel, rot, omega, cmds_damp, rot_damp, below, case_b, acc
 
 
+def _rotor_drag(p, state: DroneState, cmds_damp: torch.Tensor, dt: float):
+    """Rotor drag force and viscous (drag plus rolling) torque of each
+    drone, each clipped so that it cannot reverse the body velocity or
+    spin within two sub-steps.  Off unless cfg.use_rotor_drag; every preset
+    has C_drag = C_roll = 0."""
+    vel_body = (state.rot.transpose(-1, -2) @ state.vel[..., None])[..., 0]
+    omega = state.omega[..., None, :].expand(cmds_damp.shape + (3,))
+    v_rotor = vel_body[..., None, :] + torch.linalg.cross(
+        omega, p.prop_pos.expand(omega.shape))
+    v_rotor = torch.cat([v_rotor[..., :2], torch.zeros_like(v_rotor[..., 2:])],
+                        -1)
+    sqrt_cmd = torch.sqrt(cmds_damp)[..., None]
+    drag_fi = -p.c_drag[..., None, None] * sqrt_cmd * v_rotor
+    drag_force = torch.sum(drag_fi, -2)
+    drag_torque = torch.sum(torch.linalg.cross(
+        drag_fi, p.prop_pos.expand(drag_fi.shape)), -2)
+    roll_torque = torch.sum(-p.c_roll[..., None, None]
+                            * p.prop_ccw[..., None] * sqrt_cmd * v_rotor, -2)
+    visc_torque = drag_torque + roll_torque
+
+    def clip(x, cap):
+        norm = torch.linalg.vector_norm(x, dim=-1, keepdim=True)
+        scaled = x / torch.clamp(norm, min=EPS) * torch.minimum(norm, cap)
+        return torch.where(norm > EPS, scaled, x)
+
+    vel_norm = torch.linalg.vector_norm(vel_body, dim=-1, keepdim=True)
+    drag_force = clip(drag_force, vel_norm * p.mass[..., None] / (2 * dt))
+    omega_cap = torch.linalg.vector_norm(state.omega * p.inertia, dim=-1,
+                                         keepdim=True) / (2 * dt)
+    return drag_force, clip(visc_torque, omega_cap)
+
+
 def dynamics_substep(params, cfg: DynamicsConfig, state: DroneState,
                      thrust_cmds: torch.Tensor, thrust_noise: torch.Tensor,
                      rand_yaw_theta: torch.Tensor) -> DroneState:
     """One physics sub-step at cfg.dt (the reference's `step1`)."""
-    if cfg.use_rotor_drag:
-        raise NotImplementedError("rotor drag is not ported yet")
     p = params.to(state.pos.device, state.pos.dtype)
     dt = cfg.dt
 
     # Motor first-order filter in the sqrt domain.
     cmds = torch.clamp(thrust_cmds, 0.0, 1.0)
-    tau = torch.where(cmds < state.thrust_cmds_damp, p.motor_tau_down,
-                      p.motor_tau_up)
+    tau = torch.where(cmds < state.thrust_cmds_damp,
+                      p.motor_tau_down[..., None], p.motor_tau_up[..., None])
     tau = torch.clamp(tau, max=1.0)
     rot_damp = tau * (torch.sqrt(cmds) - state.thrust_rot_damp) \
         + state.thrust_rot_damp
     cmds_damp = torch.clamp(rot_damp**2 + cmds * thrust_noise, 0.0, 1.0)
-    lin = p.motor_linearity
+    lin = p.motor_linearity[..., None]
     thrusts = p.thrust_max * ((1.0 - lin) * cmds_damp**2 + lin * cmds_damp)
 
     # Torques: prop cross-products plus the reaction torque about z.
@@ -184,6 +218,9 @@ def dynamics_substep(params, cfg: DynamicsConfig, state: DroneState,
         -1)
     torque = torch.sum(torques, -2)
     thrust_total = torch.sum(thrusts, -1)
+    if cfg.use_rotor_drag:
+        drag_force, visc_torque = _rotor_drag(p, state, cmds_damp, dt)
+        torque = torque + visc_torque
 
     # Rodrigues about the world-frame omega, then periodic Newton polar.
     omega_world = (state.rot @ state.omega[..., None])[..., 0]
@@ -197,7 +234,8 @@ def dynamics_substep(params, cfg: DynamicsConfig, state: DroneState,
     # Omega: Euler with quadratic damping, then clip.
     omega_dot = (1.0 / p.inertia) * (
         torch.linalg.cross(-state.omega, p.inertia * state.omega) + torque)
-    damp_quad = torch.clamp(p.damp_omega_quadratic * state.omega**2, 0.0, 1.0)
+    damp_quad = torch.clamp(p.damp_omega_quadratic[..., None]
+                            * state.omega**2, 0.0, 1.0)
     omega = state.omega + (1.0 - damp_quad) * dt * omega_dot
     omega = torch.clamp(omega, -cfg.omega_max, cfg.omega_max)
 
@@ -211,12 +249,19 @@ def dynamics_substep(params, cfg: DynamicsConfig, state: DroneState,
     crashed_wall = torch.any(pos_raw[..., :2] != pos[..., :2], -1)
     crashed_ceiling = pos_raw[..., 2] > pos[..., 2]
 
+    # The body force R (drag + [0, 0, T]) in the world frame.
+    if cfg.use_rotor_drag:
+        body_force = torch.cat([drag_force[..., :2], (
+            drag_force[..., 2] + thrust_total)[..., None]], -1)
+        force = (rot @ body_force[..., None])[..., 0]
+    else:
+        force = rot[..., :, 2] * thrust_total[..., None]
     (pos, vel, rot, omega, cmds_damp, rot_damp, on_floor, crashed_floor,
      acc) = _floor_interaction(p, cfg, pos, state.vel, rot, omega, cmds_damp,
-                               rot_damp, state.on_floor, thrust_total,
+                               rot_damp, state.on_floor, force,
                                rand_yaw_theta)
 
-    vel = (1.0 - p.vel_damp) * vel + dt * acc
+    vel = (1.0 - p.vel_damp[..., None]) * vel + dt * acc
     acc_g = torch.cat([acc[..., :2], acc[..., 2:] + cfg.gravity], -1)
     accelerometer = (rot.transpose(-1, -2) @ acc_g[..., None])[..., 0]
     return state.replace(
@@ -240,13 +285,28 @@ def dynamics_tick(params, cfg: DynamicsConfig, state: DroneState,
     return state
 
 
+def noise_ratio(params, device, dtype):
+    """The thrust-noise ratio as the OU step takes it: a float for shared
+    params; for per-drone params an (N, 1) tensor on `device`, made once
+    per (params, device, dtype) and kept on the params object."""
+    if params.thrust_noise_ratio.dim() == 0:
+        return float(params.thrust_noise_ratio)
+    cache = params.__dict__.setdefault("_noise_ratio_cache", {})
+    key = (torch.device(device), dtype)
+    if key not in cache:
+        cache[key] = params.thrust_noise_ratio[:, None].to(device=device,
+                                                            dtype=dtype)
+    return cache[key]
+
+
 def draw_tick_noise(params, state: DroneState, gen: torch.Generator | None,
                     ou_normal: torch.Tensor | None = None,
                     rand_yaw_theta: torch.Tensor | None = None):
     """This tick's OU state and crash-yaw angle, from the given draws or
-    from `gen`."""
+    from `gen`.  Per-drone params broadcast over the state's agent axis."""
     ou_state = ou_noise_step(state.ou_state,
-                             float(params.thrust_noise_ratio), gen, ou_normal)
+                             noise_ratio(params, state.ou_state.device,
+                                         state.ou_state.dtype), gen, ou_normal)
     if rand_yaw_theta is None:
         u = torch.rand(state.pos.shape[:-1], generator=gen,
                        dtype=state.pos.dtype, device=state.pos.device)

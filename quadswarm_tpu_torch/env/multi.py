@@ -24,9 +24,12 @@ With `EnvConfig.use_obstacles` every env holds an obstacle grid
 cylinders and bounce off them, and the obstacle mix's scenarios spawn them
 on free cells.
 
-Supported so far: shared (non-per-drone) params, float32, raw control, and
-the scenario modes of the multi-drone mix and of the obstacle mix.
-Anything else raises NotImplementedError.
+Every control mode, shared or per-drone params (a randomized fleet: row i
+of each field is drone i of every env, as in the JAX package's vmapped
+dynamics) and all 20 scenario modes run.  bfloat16 raises
+NotImplementedError (ROADMAP.md item 8b).  Like the JAX package, a
+per-drone fleet takes its floor threshold and collision radii from drone
+0's arm.
 
 Randomness: every draw comes from the caller's `torch.Generator`, unless
 `draws` supplies it (see `batched_env_step`).  The auto-reset is a Python
@@ -42,7 +45,10 @@ import torch
 
 from quadswarm_tpu_torch.env import collisions as coll
 from quadswarm_tpu_torch.env import obstacles as obst
-from quadswarm_tpu_torch.env.controls import action_dim, apply_control
+from quadswarm_tpu_torch.env.controls import (
+    CONTROL_MODES, JACOBIAN_MODES, action_dim, apply_control,
+    control_jacobian_inv,
+)
 from quadswarm_tpu_torch.env.downwash import apply_downwash
 from quadswarm_tpu_torch.env.dynamics import (
     DroneState, DynamicsConfig, draw_tick_noise, init_state,
@@ -169,10 +175,11 @@ class EnvConfig:
         return action_dim(self.control_mode)
 
     def dynamics_config(self, arm) -> DynamicsConfig:
-        """Floor contact clamps at the fleet's arm length."""
+        """Floor contact clamps at the fleet's arm length (drone 0's for a
+        per-drone fleet)."""
         return DynamicsConfig(dt=self.dt, sim_steps=self.sim_steps,
                               room_box=self.room_box,
-                              floor_threshold=float(arm))
+                              floor_threshold=fleet_arm(arm))
 
     def scenario_config(self) -> ScenarioConfig:
         return ScenarioConfig(
@@ -193,19 +200,20 @@ class EnvConfig:
         return MIX_MODES_OBSTACLES if self.use_obstacles else MIX_MODES_MULTI
 
     def check_supported(self) -> None:
-        """Raise on any option this slice of the port does not run."""
+        """Raise on any option the port does not run."""
         if self.use_pallas_pairs and self.num_agents > MAX_AGENTS:
             raise ValueError(f"use_pallas_pairs supports num_agents <= "
                              f"{MAX_AGENTS}, got {self.num_agents}")
-        if self.control_mode != "raw":
-            apply_control(self.control_mode, torch.zeros(4))
+        if self.control_mode not in CONTROL_MODES:
+            raise ValueError(f"unknown control mode: {self.control_mode}")
         require_float32(self.dtype)
         check_modes(self.mode_list())
 
 
-def _check_params(params) -> None:
-    if params.mass.dim() >= 1:
-        raise NotImplementedError("per-drone parameters are not ported yet")
+def fleet_arm(arm) -> float:
+    """The arm length that sets the floor threshold and the collision
+    radii: the shared one, or drone 0's of a per-drone fleet."""
+    return float(torch.as_tensor(arm).reshape(-1)[0])
 
 
 @dataclasses.dataclass
@@ -317,18 +325,17 @@ def _episode_values(given, random: bool, lo: float, hi: float, step: float,
 
 def env_reset(cfg: EnvConfig, params, gen: torch.Generator, num_envs: int,
               device="cuda", rew_coeff: RewardCoeffs | None = None,
-              mode: int | None = None, event_slots: int | None = None,
+              mode=None, event_slots: int | None = None,
               obst_density=None, obst_size=None):
     """Fresh episodes for `num_envs` envs: obstacles -> scenario -> spawn
     -> obs; returns (EnvState, obs).
 
-    mode: force one scenario mode for every env (else each env samples one
-    from the config's mode list).  event_slots pins the event-table size;
+    mode: force one scenario mode for every env (an int), or one per env
+    ((E,) ints), else each env samples one from the config's mode list.  event_slots pins the event-table size;
     the auto-reset passes the running episode's size.  obst_density and
     obst_size (E,): keep these per env (else drawn from the domain-random
     grids when those are on, else the config's)."""
     cfg.check_supported()
-    _check_params(params)
     device = resolve_device(device)
     if gen.device.type != device.type:
         raise ValueError(f"generator on {gen.device}, device {device}")
@@ -363,8 +370,8 @@ def env_reset(cfg: EnvConfig, params, gen: torch.Generator, num_envs: int,
                              device=device)
         mode_t, table_modes = modes[pick], cfg.mode_list()
     else:
-        check_modes([mode])
-        mode_t, table_modes = full(mode, torch.int32), None
+        mode_t = torch.as_tensor(mode, dtype=torch.int32, device=device)
+        mode_t, table_modes = mode_t.expand(e).clone(), None
     scen = scenario_reset(cfg.scenario_config(), gen, mode_t, dtype,
                           allowed_modes=table_modes, num_slots=event_slots,
                           obst_active=obst_active, obst_centers=centers)
@@ -400,20 +407,31 @@ def env_reset(cfg: EnvConfig, params, gen: torch.Generator, num_envs: int,
     return state.replace(gyro_bias=gyro_bias), obs
 
 
+def _control_thrusts(cfg: EnvConfig, params, states: EnvState, actions,
+                     goals) -> torch.Tensor:
+    """Policy actions (E, N, A) -> normalized motor thrusts (E, N, 4).  The
+    model-based modes read J^-1, made once per params and device."""
+    j_inv = None
+    if cfg.control_mode in JACOBIAN_MODES:
+        j_inv = control_jacobian_inv(params, actions.device, cfg.dtype)
+    return apply_control(cfg.control_mode, actions, j_inv=j_inv,
+                         state=states.dyn, goal=goals,
+                         zero_action_middle=cfg.zero_action_middle)
+
+
 def _fleet_dynamics(cfg: EnvConfig, params, states: EnvState, actions, gen,
                     draws: dict) -> DroneState:
     """Control + dynamics for all E * N drones in one K1 launch."""
     e, n = actions.shape[:2]
-    thrust = apply_control(cfg.control_mode, actions,
-                           zero_action_middle=cfg.zero_action_middle)
+    thrust = _control_thrusts(cfg, params, states, actions,
+                              states.scenario.goals)
+    ou, yaw = draw_tick_noise(params, states.dyn, gen, draws.get("ou"),
+                              draws.get("yaw"))
     flat = lambda x: x.reshape((e * n,) + x.shape[2:])
-    dyn = map_fields(flat, states.dyn)
-    ou_n, yaw = draws.get("ou"), draws.get("yaw")
-    ou, yaw = draw_tick_noise(params, dyn, gen,
-                              None if ou_n is None else flat(ou_n),
-                              None if yaw is None else flat(yaw))
-    out = dynamics_tick_fused(params, cfg.dynamics_config(params.arm), dyn,
-                              flat(thrust).contiguous(), ou, yaw.contiguous())
+    out = dynamics_tick_fused(params, cfg.dynamics_config(params.arm),
+                              map_fields(flat, states.dyn),
+                              flat(thrust).contiguous(), flat(ou),
+                              flat(yaw).contiguous())
     return map_fields(lambda x: x.reshape((e, n) + x.shape[1:]), out)
 
 
@@ -435,7 +453,6 @@ def batched_env_step(cfg: EnvConfig, params, states: EnvState,
     makes no device-to-host sync.
     """
     cfg.check_supported()
-    _check_params(params)
     new_state, obs, rewards, done, info = _step(cfg, params, states, actions,
                                                 gen, draws or {})
     # One device-to-host sync per tick: the reset runs only on ticks where
@@ -480,8 +497,8 @@ def _step(cfg: EnvConfig, params, states: EnvState, actions, gen,
                                        dyn.on_floor, cfg.dt)
     done = tick > cfg.ep_len
 
-    # 2. Collision detection (radii from the arm length).
-    arm = float(params.arm)
+    # 2. Collision detection (radii from the fleet's arm length).
+    arm = fleet_arm(params.arm)
     hitbox = cfg.collision_hitbox_radius * arm
     falloff = cfg.collision_falloff_radius * arm
     if cfg.use_pallas_pairs:

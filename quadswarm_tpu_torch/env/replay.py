@@ -26,7 +26,7 @@ import dataclasses
 import torch
 
 from quadswarm_tpu_torch.env.multi import (
-    EnvConfig, EnvState, _check_params, _compute_obs, _select_done, _step,
+    EnvConfig, EnvState, _compute_obs, _select_done, _step,
     obstacles_of, reset_like,
 )
 from quadswarm_tpu_torch.utils.struct import Struct, leaves, map_fields
@@ -116,7 +116,6 @@ def batched_replay_step(cfg: EnvConfig, params, sample_prob: float,
     Missing draws come from `gen`; a fresh reset always draws from `gen`.
     """
     cfg.check_supported()
-    _check_params(params)
     draws = draws or {}
     new_state, obs, rew, done, info = _step(cfg, params, states, actions,
                                             gen, draws)

@@ -1,13 +1,12 @@
 """Goal scenarios, batched over envs.
 
-Port of quadswarm_tpu/env/scenarios.py for the nine free-space modes of the
-multi-drone mix curriculum (MIX_MODES_MULTI) and the two modes of the
-obstacle mix (MIX_MODES_OBSTACLES: o_random, o_static_same_goal), which
-spawn the drones on free cells of the obstacle grid and have no events.
-Every function works on a batch of E envs at once (the JAX package writes
-one env and vmaps); the per-env mode is data, and each mode's branch is a
-masked `torch.where`.  Asking for any other mode raises
-NotImplementedError.
+Port of quadswarm_tpu/env/scenarios.py: all 20 modes, the nine free-space
+modes of the multi-drone mix curriculum (MIX_MODES_MULTI), `run_away`, and
+the obstacle modes, which spawn the drones on free cells of the obstacle
+grid.  Every function works on a batch of E envs at once (the JAX package
+writes one env and vmaps); the per-env mode is data, and each mode's
+branch is a masked `torch.where`, computed only when some env of the batch
+has that mode.
 
 Where the randomness comes from.  The JAX package derives every scenario
 draw from `fold_in(scen_key, tick)`, so that reset can presample the
@@ -16,8 +15,11 @@ episode's events.  The port draws at reset from the caller's generator:
 packed (E, K * D) event table that `batched_scenario_step` plays back, in
 the same layout.  The one per-tick draw, the dynamic_formations speed
 resample, comes from a counter-based hash of the env's `scen_seed` and the
-tick (`counter_uniform`), so it needs no generator on the hot path.  Such
-draws match the JAX package in distribution, not bit for bit.
+tick (`counter_uniform`), so it needs no generator on the hot path.  Where
+JAX draws a categorical, a Bernoulli or a permutation with threefry (the
+uniform spawn, the diagonal's corner, every shuffle), the port ranks or
+compares uniforms from the caller's generator.  Such draws match the JAX
+package in distribution, not bit for bit.
 """
 from __future__ import annotations
 
@@ -48,10 +50,12 @@ MIX_MODES_MULTI = tuple(MODE_IDS[m] for m in (
     "swap_goals", "swarm_vs_swarm"))
 MIX_MODES_OBSTACLES = (MODE_IDS["o_random"], MODE_IDS["o_static_same_goal"])
 MIX_MODES_OBSTACLES_SINGLE = (MODE_IDS["o_random"],)
-SUPPORTED_MODES = frozenset(MIX_MODES_MULTI + MIX_MODES_OBSTACLES)
+SUPPORTED_MODES = frozenset(range(len(MODES)))
 
 _ARM = 0.05
-# (formation choices, dist_low, dist_high) of the supported modes.
+# (formation choices, dist_low, dist_high) of every mode.  As in the
+# reference, the choice indexes the global formation list, so o_swap_goals
+# (7 choices) can draw circle_horizontal and never cube.
 MODE_TABLE = {
     "static_same_goal": (1, 0.0, 0.0),
     "static_diff_goal": (8, 5 * _ARM, 10 * _ARM),
@@ -62,8 +66,19 @@ MODE_TABLE = {
     "ep_lissajous3D": (1, 0.0, 0.0),
     "ep_rand_bezier": (1, 0.0, 0.0),
     "swarm_vs_swarm": (8, 5 * _ARM, 10 * _ARM),
+    "run_away": (8, 5 * _ARM, 10 * _ARM),
+    "o_random": (1, 0.0, 0.0),
+    "o_static_same_goal": (1, 0.0, 0.0),
+    "o_dynamic_same_goal": (1, 0.0, 0.0),
+    "o_swap_goals": (7, 8 * _ARM, 16 * _ARM),
+    "o_ep_rand_bezier": (1, 0.0, 0.0),
+    "o_uniform_same_goal_spawn": (1, 0.0, 0.0),
+    "o_diagonal": (1, 0.0, 0.0),
+    "o_static_diff_goal": (8, 5 * _ARM, 10 * _ARM),
+    "o_dynamic_diff_goal": (8, 5 * _ARM, 10 * _ARM),
+    "o_test": (1, 0.0, 0.0),
 }
-_ROWS = [MODE_TABLE.get(m, (1, 0.0, 0.0)) for m in MODES]
+_ROWS = [MODE_TABLE[m] for m in MODES]
 MODE_NUM_CHOICES = np.array([r[0] for r in _ROWS], np.int64)
 MODE_DIST_LOW = np.array([r[1] for r in _ROWS], np.float64)
 MODE_DIST_HIGH = np.array([r[2] for r in _ROWS], np.float64)
@@ -76,9 +91,23 @@ MODE_APPROACH_METRIC = np.array(
 BEZIER_ATTEMPTS = 20
 CONTINUOUS_MODES = frozenset((MODE_IDS["dynamic_formations"],
                               MODE_IDS["ep_lissajous3D"],
-                              MODE_IDS["ep_rand_bezier"]))
-_INTERVAL_MODES = frozenset((2, 3, 4, 8))
-BEZIER_SECS = 5
+                              MODE_IDS["ep_rand_bezier"],
+                              MODE_IDS["o_ep_rand_bezier"]))
+# Modes with an event every `interval` ticks: dynamic_same_goal,
+# dynamic_diff_goal, swap_goals, swarm_vs_swarm, run_away (1 s),
+# o_dynamic_same_goal (also at tick 1), o_swap_goals, o_dynamic_diff_goal.
+_INTERVAL_MODES = frozenset((2, 3, 4, 8, 9, 12, 13, 18))
+# The obstacle modes whose reset places the drones on the free cells.
+_OBSTACLE_RESET_MODES = frozenset(range(MODE_IDS["o_random"],
+                                        MODE_IDS["o_test"]))
+# Each Bezier mode: (seconds between resamples, the control points' largest
+# distance, and for the obstacle mode the z range of the points).
+BEZIER_MODES = {MODE_IDS["ep_rand_bezier"]: (5, 30.0, None),
+                MODE_IDS["o_ep_rand_bezier"]: (6, 5.0, (1.5, 3.0))}
+# o_test: the goals start around O_TEST_START and move to O_TEST_END after
+# a U(2, 4) s interval.
+O_TEST_START = (0.0, 3.0, 2.0)
+O_TEST_END = (0.0, -3.0, 2.0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,11 +184,8 @@ class ScenarioState(Struct):
 def check_modes(modes) -> None:
     bad = sorted(set(int(m) for m in modes) - SUPPORTED_MODES)
     if bad:
-        raise NotImplementedError(
-            f"scenario modes {[MODES[m] for m in bad]} are not ported yet "
-            "(ROADMAP.md Queue 1 item 11b); the port supports the nine "
-            "free-space modes of the mix and the obstacle mix's o_random "
-            "and o_static_same_goal")
+        raise ValueError(f"unknown scenario mode ids {bad}; there are "
+                         f"{len(MODES)} modes")
 
 
 def num_event_slots(cfg: ScenarioConfig, allowed_modes=None) -> int:
@@ -171,7 +197,7 @@ def num_event_slots(cfg: ScenarioConfig, allowed_modes=None) -> int:
     k = 1
     if MODE_IDS["run_away"] in allowed:
         k = max(k, ep_len // max(int(1 * f), 1))
-    if allowed & (_INTERVAL_MODES | {9, 12, 13, 18}):
+    if allowed & _INTERVAL_MODES:
         k = max(k, ep_len // max(int(4 * f), 1))
     if MODE_IDS["o_dynamic_same_goal"] in allowed:
         k = max(k, 1 + ep_len // max(int(4 * f), 1))
@@ -244,15 +270,21 @@ def _sample_formation_params(gen, cfg: ScenarioConfig, mode, dtype):
 
 
 def _sample_bezier_nodes(gen, goal0, room_dims, formation_size,
-                         max_dist_cap: float):
+                         max_dist_cap: float, z_range=None):
     """Degree-2 Bezier control points (E, 3 dims, 3 points) with the bounds
-    check, by BEZIER_ATTEMPTS masked retries per env."""
+    check, by BEZIER_ATTEMPTS masked retries per env.  The points stay in
+    the room less the formation's size, with z in [0, room height), or in
+    `z_range` (the obstacle mode's)."""
     e, dev, dtype = goal0.shape[0], goal0.device, goal0.dtype
     room = torch.tensor(room_dims, dtype=dtype, device=dev) \
         - formation_size[:, None]
-    zero = torch.zeros_like(room[:, 0])
-    low = torch.stack([-room[:, 0] / 2, -room[:, 1] / 2, zero], -1)
-    high = torch.stack([room[:, 0] / 2, room[:, 1] / 2, room[:, 2]], -1)
+    if z_range is None:
+        z_lo, z_hi = torch.zeros_like(room[:, 0]), room[:, 2]
+    else:
+        z_lo = torch.full_like(room[:, 0], z_range[0])
+        z_hi = torch.full_like(room[:, 0], z_range[1])
+    low = torch.stack([-room[:, 0] / 2, -room[:, 1] / 2, z_lo], -1)
+    high = torch.stack([room[:, 0] / 2, room[:, 1] / 2, z_hi], -1)
     max_dist = torch.clamp(torch.max(room, -1).values, max=max_dist_cap)
     min_dist = max_dist / 2
     a = BEZIER_ATTEMPTS
@@ -301,6 +333,20 @@ def sample_free_cells(gen, active: torch.Tensor, centers: torch.Tensor,
     idx = (order[:, :num] if num <= c else
            order[:, torch.arange(num, device=active.device) % c])
     z = _uniform(gen, (e, num), z_lo, z_hi, dtype, active.device)
+    return torch.cat([centers[idx].to(dtype), z[..., None]], -1)
+
+
+def free_cell_attempts(gen, active: torch.Tensor, centers: torch.Tensor,
+                       attempts: int, z_lo: float, z_hi: float,
+                       dtype=torch.float32):
+    """`attempts` independent one-cell draws of `sample_free_cells` per
+    env, (E, attempts, 3): each a uniform free cell with a uniform z."""
+    e, c = active.shape
+    scores = torch.rand((e, attempts, c), generator=gen, device=active.device)
+    scores = torch.where(active[:, None, :],
+                         torch.full_like(scores, -float("inf")), scores)
+    idx = torch.argmax(scores, -1)
+    z = _uniform(gen, (e, attempts), z_lo, z_hi, dtype, active.device)
     return torch.cat([centers[idx].to(dtype), z[..., None]], -1)
 
 
@@ -433,35 +479,143 @@ def scenario_reset(cfg: ScenarioConfig, gen: torch.Generator, mode,
         goal_center_1=_sel(is_svs, c1, st.goal_center_1),
         goal_center_2=_sel(is_svs, c2, st.goal_center_2))
 
-    # o_random and o_static_same_goal: spawn on free cells at z 1-3; per
-    # drone goals on other free cells (o_random) or the centre of the
-    # freest square (o_static_same_goal, and the end point of both).
-    if present & set(MIX_MODES_OBSTACLES):
-        a0, a1 = cfg.obst_area
-        c = a0 * a1
-        active = (torch.zeros((e, c), dtype=torch.bool, device=dev)
-                  if obst_active is None else obst_active)
-        centers = (torch.zeros((c, 2), dtype=dtype, device=dev)
-                   if obst_centers is None else obst_centers)
-        spawn = sample_free_cells(gen, active, centers, n, 1.0, 3.0, dtype)
+    # The obstacle modes but o_test: spawn on free cells at z 1-3, goals
+    # by sub-mode around the centre of the freest square.
+    obst_modes = present & _OBSTACLE_RESET_MODES
+    a0, a1 = cfg.obst_area
+    active = (torch.zeros((e, a0 * a1), dtype=torch.bool, device=dev)
+              if obst_active is None else obst_active)
+    centers = (torch.zeros((a0 * a1, 2), dtype=dtype, device=dev)
+               if obst_centers is None else obst_centers)
+    if obst_modes:
+        st = _reset_obstacle_modes(cfg, gen, st, obst_modes, active, centers,
+                                   fid, size, layer_dist)
+
+    # o_test: a formation from O_TEST_START moves to O_TEST_END after a
+    # U(2, 4) s interval.
+    if MODE_IDS["o_test"] in present:
+        is_test = mode == MODE_IDS["o_test"]
+        start = torch.tensor(O_TEST_START, dtype=dtype, device=dev).expand(e, 3)
+        goals = _permute(gen, generate_goals_affine(n, fid, start, size,
+                                                    layer_dist))
+        dur = ((u() * 2.0 + 2.0) * cfg.control_freq).to(torch.int32)
+        st = st.replace(
+            goals=_sel(is_test, goals, st.goals),
+            spawn_points=_sel(is_test, goals, st.spawn_points),
+            end_point=_sel(is_test, torch.tensor(
+                O_TEST_END, dtype=dtype, device=dev).expand(e, 3),
+                st.end_point),
+            formation_center=_sel(is_test, start, st.formation_center),
+            interval=torch.where(is_test, dur, st.interval))
+
+    # run_away: an event every second.
+    st = st.replace(interval=torch.where(
+        mode == MODE_IDS["run_away"],
+        torch.full_like(st.interval, int(cfg.control_freq)), st.interval))
+
+    # Bezier modes: an initial curve at reset (the tick-1 event resamples).
+    for mid, (_, cap, z_range) in BEZIER_MODES.items():
+        if mid in present:
+            nodes = _sample_bezier_nodes(gen, st.goals[:, 0], cfg.room_dims,
+                                         st.formation_size, cap, z_range)
+            st = st.replace(bezier_nodes=_sel(mode == mid, nodes,
+                                              st.bezier_nodes))
+    return st.replace(events=presample_events(cfg, st, gen, present, active,
+                                              centers))
+
+
+def _reset_obstacle_modes(cfg: ScenarioConfig, gen, st: ScenarioState,
+                          modes: set, active, centers, fid, size,
+                          layer_dist) -> ScenarioState:
+    """Spawn points, goals, end point and formation centre of the envs in
+    the obstacle modes `modes` (all but o_test):
+      o_random: goals on other free cells;
+      o_swap_goals: a shuffled formation around the freest square's centre
+        (drawn again, with its own z);
+      o_static_diff_goal, o_dynamic_diff_goal: a shuffled formation around
+        the freest square's centre;
+      o_ep_rand_bezier: one goal on a free cell at z 0.75-3;
+      o_uniform_same_goal_spawn: each drone on a uniform free cell, drawn
+        with replacement;
+      o_diagonal: the swarm on the free cells nearest a random corner at
+        z 2, its shared goal on the free cell nearest the opposite corner;
+      the rest: one goal at the freest square's centre."""
+    n = cfg.num_agents
+    mode = st.mode
+    e, c = active.shape
+    dev, dtype = active.device, st.goals.dtype
+    a0, a1 = cfg.obst_area
+    is_ = lambda name: mode == MODE_IDS[name]
+    has = lambda name: MODE_IDS[name] in modes
+    default_center = torch.tensor([0.0, 0.0, 2.0], dtype=dtype,
+                                  device=dev).expand(e, 3)
+
+    spawn = sample_free_cells(gen, active, centers, n, 1.0, 3.0, dtype)
+    square = max_free_square_center(gen, active.reshape(e, a0, a1), centers,
+                                    dtype)
+    end = square
+    goals = square[:, None, :].expand(e, n, 3)
+    center = default_center
+    if has("o_random"):
         per_agent = sample_free_cells(gen, active, centers, n, 1.0, 3.0,
                                       dtype)
-        square = max_free_square_center(gen, active.reshape(e, a0, a1),
-                                        centers, dtype)
-        is_obst = ((mode == MODE_IDS["o_random"])
-                   | (mode == MODE_IDS["o_static_same_goal"]))
-        goals = _sel(mode == MODE_IDS["o_random"], per_agent,
-                     square[:, None, :].expand(e, n, 3))
-        st = st.replace(goals=_sel(is_obst, goals, st.goals),
-                        spawn_points=_sel(is_obst, spawn, st.spawn_points),
-                        end_point=_sel(is_obst, square, st.end_point))
+        goals = _sel(is_("o_random"), per_agent, goals)
+    if has("o_swap_goals"):
+        swap_center = max_free_square_center(
+            gen, active.reshape(e, a0, a1), centers, dtype)
+        swap_goals = _permute(gen, generate_goals_affine(
+            n, fid, swap_center, size, layer_dist))
+        goals = _sel(is_("o_swap_goals"), swap_goals, goals)
+        center = _sel(is_("o_swap_goals"), swap_center, center)
+    if has("o_static_diff_goal") or has("o_dynamic_diff_goal"):
+        is_diff = is_("o_static_diff_goal") | is_("o_dynamic_diff_goal")
+        diff_goals = _permute(gen, generate_goals_affine(
+            n, fid, square, size, layer_dist))
+        goals = _sel(is_diff, diff_goals, goals)
+        center = _sel(is_diff, square, center)
+    if has("o_ep_rand_bezier"):
+        bezier_end = sample_free_cells(gen, active, centers, 1, 0.75, 3.0,
+                                       dtype)[:, 0]
+        is_bez = is_("o_ep_rand_bezier")
+        end = _sel(is_bez, bezier_end, end)
+        goals = _sel(is_bez, bezier_end[:, None, :].expand(e, n, 3), goals)
+    if has("o_uniform_same_goal_spawn"):
+        scores = torch.rand((e, n, c), generator=gen, device=dev)
+        scores = torch.where(active[:, None, :],
+                             torch.full_like(scores, -1.0), scores)
+        z = _uniform(gen, (e, n), 1.0, 3.0, dtype, dev)
+        uniform = torch.cat([centers[torch.argmax(scores, -1)].to(dtype),
+                             z[..., None]], -1)
+        spawn = _sel(is_("o_uniform_same_goal_spawn"), uniform, spawn)
+    if has("o_diagonal"):
+        sign = torch.where(torch.rand((e, 2), generator=gen, device=dev)
+                           < 0.5, 1.0, -1.0).to(dtype)
+        score = centers.to(dtype) @ sign.T                     # (C, E)
+        score = score.T
+        noise = 1e-3 * torch.rand((e, c), generator=gen, dtype=dtype,
+                                  device=dev)
+        inf = torch.full_like(score, float("inf"))
+        near = torch.where(active, -inf, score + noise)
+        order = torch.argsort(near, dim=-1, descending=True)
+        idx = order[:, torch.arange(n, device=dev) % c]
+        two = lambda *s: torch.full(s + (1,), 2.0, dtype=dtype, device=dev)
+        diag_spawn = torch.cat([centers[idx].to(dtype), two(e, n)], -1)
+        far = torch.where(active, inf, score - noise)
+        diag_goal = torch.cat([centers[torch.argmin(far, -1)].to(dtype),
+                               two(e)], -1)
+        is_diag = is_("o_diagonal")
+        spawn = _sel(is_diag, diag_spawn, spawn)
+        end = _sel(is_diag, diag_goal, end)
+        goals = _sel(is_diag, diag_goal[:, None, :].expand(e, n, 3), goals)
 
-    # ep_rand_bezier: an initial curve at reset (the tick-1 event resamples).
-    is_bez = mode == MODE_IDS["ep_rand_bezier"]
-    nodes = _sample_bezier_nodes(gen, st.goals[:, 0], cfg.room_dims,
-                                 st.formation_size, 30.0)
-    st = st.replace(bezier_nodes=_sel(is_bez, nodes, st.bezier_nodes))
-    return st.replace(events=presample_events(cfg, st, gen))
+    is_obst = torch.zeros_like(mode, dtype=torch.bool)
+    for m in modes:
+        is_obst |= mode == m
+    return st.replace(goals=_sel(is_obst, goals, st.goals),
+                      spawn_points=_sel(is_obst, spawn, st.spawn_points),
+                      end_point=_sel(is_obst, end, st.end_point),
+                      formation_center=_sel(is_obst, center,
+                                            st.formation_center))
 
 
 # --------------------------------------------------------------------------
@@ -469,70 +623,106 @@ def scenario_reset(cfg: ScenarioConfig, gen: torch.Generator, mode,
 # --------------------------------------------------------------------------
 
 def _event_outcomes(cfg: ScenarioConfig, st: ScenarioState,
-                    gen: torch.Generator) -> ScenarioState:
+                    gen: torch.Generator, present: set, active: torch.Tensor,
+                    centers: torch.Tensor) -> ScenarioState:
     """Every env's next event applied (the JAX package's slow phase at an
     event tick), drawn from `gen`; envs whose mode has no events pass
-    through."""
+    through.  Only the branches of the modes in `present` are computed.
+    `active` (E, C) and `centers` (C, 2) are the obstacle grid."""
     n = cfg.num_agents
     e, dev, dtype = st.mode.shape[0], st.mode.device, st.goals.dtype
     box = cfg.box
     mode = st.mode
     u = lambda: _uniform(gen, (e,), 0.0, 1.0, dtype, dev)
+    is_ = lambda name: mode == MODE_IDS[name]
+    has = lambda *names: any(MODE_IDS[m] in present for m in names)
+    out = {}                  # leaf -> (mask, new value), applied in order
 
-    # dynamic_same_goal: teleport the shared goal.
-    xy = torch.stack([u(), u()], -1) * (2 * box) - box
-    z = torch.clamp(u() * box - 0.5 * box + 2.0, min=0.25)
-    dsg_center = torch.cat([xy, z[:, None]], -1)
-    dsg_goals = generate_goals_affine(n, st.formation, dsg_center,
-                                      st.formation_size, 0.0)
+    def put(mask, **leaves):
+        for name, value in leaves.items():
+            out.setdefault(name, []).append((mask, value))
 
-    # dynamic_diff_goal: new formation, teleport (z bound from the old
-    # formation, as the reference), shuffle.
-    fid, npl, lo, hi, size, ld = _sample_formation_params(gen, cfg, mode,
-                                                          dtype)
-    xy = torch.stack([u(), u()], -1) * (2 * box) - box
-    z = get_z_value(u(), st.formation, n, st.num_agents_per_layer, box,
-                    st.formation_size)
-    ddg_center = torch.cat([xy, z[:, None]], -1)
-    ddg_goals = _permute(gen, generate_goals_affine(n, fid, ddg_center, size,
-                                                    ld))
+    if has("dynamic_same_goal"):
+        # teleport the shared goal
+        xy = torch.stack([u(), u()], -1) * (2 * box) - box
+        z = torch.clamp(u() * box - 0.5 * box + 2.0, min=0.25)
+        center = torch.cat([xy, z[:, None]], -1)
+        put(is_("dynamic_same_goal"), formation_center=center,
+            goals=generate_goals_affine(n, st.formation, center,
+                                        st.formation_size, 0.0))
+    if has("dynamic_diff_goal", "swarm_vs_swarm", "o_dynamic_diff_goal"):
+        # a new formation, from each env's mode's table
+        fid, npl, lo, hi, size, ld = _sample_formation_params(gen, cfg, mode,
+                                                              dtype)
+        form = dict(formation=fid, num_agents_per_layer=npl, lowest_size=lo,
+                    highest_size=hi, formation_size=size, layer_dist=ld)
+    if has("dynamic_diff_goal"):
+        # new formation, teleport (z bound from the old formation, as the
+        # reference), shuffle
+        xy = torch.stack([u(), u()], -1) * (2 * box) - box
+        z = get_z_value(u(), st.formation, n, st.num_agents_per_layer, box,
+                        st.formation_size)
+        center = torch.cat([xy, z[:, None]], -1)
+        put(is_("dynamic_diff_goal"), formation_center=center,
+            goals=_permute(gen, generate_goals_affine(n, fid, center, size,
+                                                      ld)), **form)
+    if has("swap_goals", "o_swap_goals"):
+        put(is_("swap_goals") | is_("o_swap_goals"),
+            goals=_permute(gen, st.goals))
+    if has("swarm_vs_swarm"):
+        # swap the two centers, new formation, regenerate and shuffle each
+        # half
+        c1, c2 = st.goal_center_2, st.goal_center_1
+        put(is_("swarm_vs_swarm"), goal_center_1=c1, goal_center_2=c2,
+            goals=torch.cat([
+                _permute(gen, generate_goals_affine(n // 2, fid, c1, size,
+                                                    ld)),
+                _permute(gen, generate_goals_affine(n - n // 2, fid, c2, size,
+                                                    ld))], 1), **form)
+    for mid, (_, cap, z_range) in BEZIER_MODES.items():
+        if mid in present:
+            # resample the curve from the current goal
+            put(mode == mid, bezier_nodes=_sample_bezier_nodes(
+                gen, st.goals[:, 0], cfg.room_dims, st.formation_size, cap,
+                z_range))
+    if has("run_away") and n > 1:
+        # drones 0 and 1 take the goals of two random others
+        pick = torch.randint(1, n, (e, 2), generator=gen, device=dev)
+        taken = torch.gather(st.goals, 1, pick[..., None].expand(e, 2, 3))
+        put(is_("run_away"), goals=torch.cat([taken, st.goals[:, 2:]], 1))
+    if has("o_dynamic_same_goal"):
+        # a goal on a free cell within 4 of the last one, the first of
+        # BEZIER_ATTEMPTS draws that is (else the first draw)
+        pts = free_cell_attempts(gen, active, centers, BEZIER_ATTEMPTS, 0.75,
+                                 3.0, dtype)
+        ok = torch.linalg.vector_norm(st.end_point[:, None] - pts,
+                                      dim=-1) <= 4.0
+        first = torch.argmax(ok.to(torch.uint8), -1)
+        goal = pts[torch.arange(e, device=dev), first]
+        put(is_("o_dynamic_same_goal"), end_point=goal,
+            goals=goal[:, None, :].expand(e, n, 3))
+    if has("o_dynamic_diff_goal"):
+        # the formation teleports to the freest square's centre (with a
+        # new z), new formation, shuffled
+        a0, a1 = cfg.obst_area
+        center = max_free_square_center(gen, active.reshape(e, a0, a1),
+                                        centers, dtype)
+        put(is_("o_dynamic_diff_goal"), formation_center=center,
+            end_point=center, goals=_permute(gen, generate_goals_affine(
+                n, fid, center, size, ld)), **form)
+    if has("o_test"):
+        # the formation moves to the end point, once
+        put(is_("o_test"), goals=generate_goals_affine(
+            n, st.formation, st.end_point, st.formation_size, 0.0),
+            interval=st.interval + int((cfg.ep_time + 1) * cfg.control_freq))
 
-    # swap_goals: shuffle.
-    swap_goals = _permute(gen, st.goals)
-
-    # swarm_vs_swarm: swap the two centers, new formation, regenerate and
-    # shuffle each half.
-    c1, c2 = st.goal_center_2, st.goal_center_1
-    svs_goals = torch.cat([
-        _permute(gen, generate_goals_affine(n // 2, fid, c1, size, ld)),
-        _permute(gen, generate_goals_affine(n - n // 2, fid, c2, size, ld))],
-        1)
-
-    # ep_rand_bezier: resample the curve from the current goal.
-    nodes = _sample_bezier_nodes(gen, st.goals[:, 0], cfg.room_dims,
-                                 st.formation_size, 30.0)
-
-    is_dsg = mode == MODE_IDS["dynamic_same_goal"]
-    is_ddg = mode == MODE_IDS["dynamic_diff_goal"]
-    is_swap = mode == MODE_IDS["swap_goals"]
-    is_svs = mode == MODE_IDS["swarm_vs_swarm"]
-    is_bez = mode == MODE_IDS["ep_rand_bezier"]
-    new_form = is_ddg | is_svs
-    goals = _sel(is_dsg, dsg_goals, _sel(is_ddg, ddg_goals, _sel(
-        is_swap, swap_goals, _sel(is_svs, svs_goals, st.goals))))
-    return st.replace(
-        goals=goals,
-        formation=_sel(new_form, fid, st.formation),
-        num_agents_per_layer=_sel(new_form, npl, st.num_agents_per_layer),
-        lowest_size=_sel(new_form, lo, st.lowest_size),
-        highest_size=_sel(new_form, hi, st.highest_size),
-        formation_size=_sel(new_form, size, st.formation_size),
-        layer_dist=_sel(new_form, ld, st.layer_dist),
-        formation_center=_sel(is_dsg, dsg_center, _sel(
-            is_ddg, ddg_center, st.formation_center)),
-        goal_center_1=_sel(is_svs, c1, st.goal_center_1),
-        goal_center_2=_sel(is_svs, c2, st.goal_center_2),
-        bezier_nodes=_sel(is_bez, nodes, st.bezier_nodes))
+    changes = {}
+    for name, updates in out.items():
+        value = getattr(st, name)
+        for mask, new in updates:
+            value = _sel(mask, new, value)
+        changes[name] = value
+    return st.replace(**changes)
 
 
 def _pack_row(st: ScenarioState) -> torch.Tensor:
@@ -553,7 +743,9 @@ def _unpack_row(row: torch.Tensor, n: int, dtype) -> dict:
 
 
 def presample_events(cfg: ScenarioConfig, st: ScenarioState,
-                     gen: torch.Generator) -> torch.Tensor:
+                     gen: torch.Generator, present: set,
+                     active: torch.Tensor, centers: torch.Tensor
+                     ) -> torch.Tensor:
     """The episode's packed event table: slot k holds the outcome of the
     (k + 1)-th event, each event applied to the previous one's outcome.
     A Bezier event sees the goals at the previous curve's end point, so
@@ -561,10 +753,12 @@ def presample_events(cfg: ScenarioConfig, st: ScenarioState,
     last event are never played back."""
     n = cfg.num_agents
     num_slots = st.events.shape[-1] // event_table_width(n)
-    is_bez = st.mode == MODE_IDS["ep_rand_bezier"]
+    is_bez = torch.zeros_like(st.mode, dtype=torch.bool)
+    for mid in BEZIER_MODES:
+        is_bez |= st.mode == mid
     rows = []
     for _ in range(num_slots):
-        new = _event_outcomes(cfg, st, gen)
+        new = _event_outcomes(cfg, st, gen, present, active, centers)
         rows.append(_pack_row(new))
         end_goals = new.bezier_nodes[:, :, 2][:, None, :].expand_as(new.goals)
         st = new.replace(goals=_sel(is_bez, end_goals, new.goals))
@@ -579,10 +773,16 @@ def scenario_event(cfg: ScenarioConfig, st: ScenarioState,
     interval_mode = torch.zeros_like(at_interval)
     for m in _INTERVAL_MODES:
         interval_mode |= mode == m
-    cs = int(BEZIER_SECS * cfg.control_freq)
-    bez = (mode == MODE_IDS["ep_rand_bezier"]) & ((tick % cs == 0)
-                                                  | (tick == 1))
-    return (interval_mode & at_interval) | bez
+    event = interval_mode & at_interval
+    # o_dynamic_same_goal also draws its first goal at tick 1
+    event |= (mode == MODE_IDS["o_dynamic_same_goal"]) & (tick == 1)
+    for mid, (secs, _, _) in BEZIER_MODES.items():
+        cs = int(secs * cfg.control_freq)
+        event |= (mode == mid) & ((tick % cs == 0) | (tick == 1))
+    # o_test: once, on the first tick past its interval (the event pushes
+    # the interval past the episode)
+    event |= (mode == MODE_IDS["o_test"]) & (tick > st.interval)
+    return event
 
 
 # --------------------------------------------------------------------------
@@ -592,8 +792,8 @@ def scenario_event(cfg: ScenarioConfig, st: ScenarioState,
 def batched_scenario_step(cfg: ScenarioConfig, sts: ScenarioState,
                           ticks: torch.Tensor) -> ScenarioState:
     """Advance every env's scenario by one tick: the continuous goal motion
-    of dynamic_formations, ep_lissajous3D and ep_rand_bezier, then the
-    playback of this tick's presampled events."""
+    of dynamic_formations, ep_lissajous3D and the two Bezier modes, then
+    the playback of this tick's presampled events."""
     n = cfg.num_agents
     dtype = sts.goals.dtype
     mode = sts.mode
@@ -620,13 +820,13 @@ def batched_scenario_step(cfg: ScenarioConfig, sts: ScenarioState,
     goal0 = sts.goals[:, 0] + off
     goals = _sel(is_liss, goal0[:, None, :].expand(goals.shape), goals)
 
-    # ep_rand_bezier: move along the curve between resamples.
-    is_bez = mode == MODE_IDS["ep_rand_bezier"]
-    steps = int(BEZIER_SECS * cfg.control_freq)
-    t_idx = ticks % steps
-    goal0 = _bezier_eval(sts.bezier_nodes, t_idx.to(dtype) / (steps - 1))
-    move = is_bez & (t_idx != 0) & (ticks > 1)
-    goals = _sel(move, goal0[:, None, :].expand(goals.shape), goals)
+    # Bezier modes: move along the curve between resamples.
+    for mid, (secs, _, _) in BEZIER_MODES.items():
+        steps = int(secs * cfg.control_freq)
+        t_idx = ticks % steps
+        goal0 = _bezier_eval(sts.bezier_nodes, t_idx.to(dtype) / (steps - 1))
+        move = (mode == mid) & (t_idx != 0) & (ticks > 1)
+        goals = _sel(move, goal0[:, None, :].expand(goals.shape), goals)
 
     fast = sts.replace(
         goals=goals, formation_size=torch.where(is_df, size,

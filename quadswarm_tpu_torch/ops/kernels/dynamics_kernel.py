@@ -22,9 +22,18 @@ inputs are checked in one pass against shapes cached by batch size, and the
 ctypes pointer block is reused between calls (so the wrapper is not
 re-entrant: one thread launches at a time).
 
+Shared parameters reach the kernel by value (`param_vector`, the TPU
+kernel's SMEM vector).  Per-drone parameters, which the TPU kernel never
+receives (the JAX package integrates a randomized fleet with XLA), reach
+it as an (N, N_PARAMS) float32 table on the device (`param_table`), and
+drone b of the flat batch flies row b % N: the batch is env-major, so row
+i is drone i of every env.  Both are built once per (params, cfg) and kept
+on the params object.
+
 `dynamics_tick_fused` takes a CPU state to the plain version
-(env/dynamics.py::dynamics_tick) and a CUDA state to the kernel; there is
-no fallback from one to the other.
+(`dynamics_tick_flat`) and a CUDA state to the kernel; there is no
+fallback from one to the other.  The kernel has no rotor drag, as the TPU
+kernel has none, and refuses a config that asks for it.
 """
 from __future__ import annotations
 
@@ -38,6 +47,7 @@ import torch
 from quadswarm_tpu_torch.env.dynamics import (
     DroneState, DynamicsConfig, dynamics_tick,
 )
+from quadswarm_tpu_torch.utils.struct import map_fields
 from quadswarm_tpu_torch.ops.kernels import build
 
 SOURCE = "dynamics_kernel.cu"
@@ -166,6 +176,14 @@ def param_vector(params, cfg: DynamicsConfig) -> np.ndarray:
     return vec
 
 
+def param_table(params, cfg: DynamicsConfig) -> np.ndarray:
+    """Per-drone parameters as an (N, N_PARAMS) float32 table, row i in
+    `param_vector`'s layout for drone i."""
+    n = params.mass.shape[0]
+    row = lambda i: param_vector(map_fields(lambda x: x[i], params), cfg)
+    return np.stack([row(i) for i in range(n)])
+
+
 def _param_buffer(params, cfg: DynamicsConfig):
     """The parameter vector as a ctypes array, built once per (params, cfg)
     and kept on the params object (parameters are set-up values and are
@@ -176,14 +194,44 @@ def _param_buffer(params, cfg: DynamicsConfig):
     return cache[cfg]
 
 
+def _param_table_on(params, cfg: DynamicsConfig, device) -> torch.Tensor:
+    """`param_table` on the device, copied there once per (params, cfg,
+    device) and kept on the params object."""
+    cache = params.__dict__.setdefault("_kernel_table_cache", {})
+    key = (cfg, device)
+    if key not in cache:
+        cache[key] = torch.as_tensor(param_table(params, cfg),
+                                     device=device).contiguous()
+    return cache[key]
+
+
+def dynamics_tick_flat(params, cfg: DynamicsConfig, state: DroneState,
+                       thrust_cmds, ou_state, rand_yaw_theta) -> DroneState:
+    """The plain version of one kernel call on a flat batch: per-drone
+    params of N rows fly drone b with row b % N (the batch seen as
+    (B / N, N)); shared params as they are."""
+    if not params.per_drone:
+        return dynamics_tick(params, cfg, state, thrust_cmds, ou_state,
+                             rand_yaw_theta)
+    b, n = state.pos.shape[0], params.mass.shape[0]
+    if b % n:
+        raise ValueError(f"a batch of {b} drones is no whole number of "
+                         f"fleets of the params' {n} drones")
+    split = lambda x: x.reshape((b // n, n) + x.shape[1:])
+    out = dynamics_tick(params, cfg, map_fields(split, state),
+                        split(thrust_cmds), split(ou_state),
+                        split(rand_yaw_theta))
+    return map_fields(lambda x: x.reshape((b,) + x.shape[2:]), out)
+
+
 def _load():
     lib = build.load(SOURCE)
     if getattr(lib, "ready", False):
         return lib
     fn = lib.qs_dynamics_step
-    fn.argtypes = [ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
-                   ctypes.c_void_p]
+    fn.argtypes = [ctypes.POINTER(ctypes.c_float), ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.qs_dynamics_block_threads.argtypes = []
     lib.qs_dynamics_block_threads.restype = ctypes.c_int
@@ -205,33 +253,53 @@ def dynamics_tick_fused(params, cfg: DynamicsConfig, state: DroneState,
                         rand_yaw_theta: torch.Tensor) -> DroneState:
     """One control tick for a flat batch: state leaves (B, ...), thrust
     commands and this tick's OU state (B, 4), crash yaw angles (B,).
+    Shared params, or per-drone params of N rows with B a multiple of N.
     Returns the new DroneState, carrying `ou_state`."""
     if cfg.use_rotor_drag:
-        raise NotImplementedError("rotor drag is not ported yet")
+        raise NotImplementedError(
+            "rotor drag is not in the dynamics kernel: the TPU kernel it "
+            "ports has none; the plain dynamics (env/dynamics.py) has it")
     device = state.pos.device
     if device.type == "cpu":
-        return dynamics_tick(params, cfg, state, thrust_cmds, ou_state,
-                             rand_yaw_theta)
+        return dynamics_tick_flat(params, cfg, state, thrust_cmds, ou_state,
+                                  rand_yaw_theta)
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
     b = state.pos.shape[0]
+    per_drone = params.per_drone
+    if per_drone and b % params.mass.shape[0]:
+        raise ValueError(f"a batch of {b} drones is no whole number of "
+                         f"fleets of the params' {params.mass.shape[0]} "
+                         "drones")
     inputs = kernel_inputs(state, thrust_cmds, ou_state, rand_yaw_theta)
     check_inputs(inputs, b, device)
     arenas, outs = output_arenas(b, device)
     for k, t in enumerate(inputs + arenas):
         _PTRS[k] = t.data_ptr()
     lib = _load()
-    rc = lib.qs_dynamics_step(_param_buffer(params, cfg), cfg.sim_steps,
-                              cfg.orthonormalize_every, b, _PTRS,
-                              build.current_stream(device))
+    if per_drone:
+        table = _param_table_on(params, cfg, device)
+        rc = lib.qs_dynamics_step(None, table.data_ptr(), table.shape[0],
+                                  cfg.sim_steps, cfg.orthonormalize_every, b,
+                                  _PTRS, build.current_stream(device))
+    else:
+        rc = lib.qs_dynamics_step(_param_buffer(params, cfg), None, 0,
+                                  cfg.sim_steps, cfg.orthonormalize_every, b,
+                                  _PTRS, build.current_stream(device))
     if rc != 0:
         raise RuntimeError("dynamics kernel launch failed: "
                            + lib.qs_error_string(rc).decode())
-    dynamics_tick_fused.launches += 1
+    if per_drone:
+        dynamics_tick_fused.per_drone_launches += 1
+    else:
+        dynamics_tick_fused.launches += 1
     return DroneState(ou_state=ou_state, **outs)
 
 
+# Launches of the kernel's two forms: shared parameters (`launches`) and
+# the per-drone table (`per_drone_launches`).
 dynamics_tick_fused.launches = 0
+dynamics_tick_fused.per_drone_launches = 0
 
 
 def block_threads() -> int:

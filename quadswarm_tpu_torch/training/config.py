@@ -18,8 +18,6 @@ import warnings
 
 # ROADMAP.md Queue 1 items of the paths not ported yet.
 _NOT_PORTED = "is not ported yet (ROADMAP.md Queue 1 item {})"
-# The scenario modes the port runs beside the free-space ones.
-_OBSTACLE_MODES = ("o_random", "o_static_same_goal")
 
 
 def str2bool(v):
@@ -276,10 +274,6 @@ def _resolve_compat_flags(args) -> argparse.Namespace:
         ("--appo_split_devices (APPO's rollout and learner on disjoint "
          "devices)", bool(args.appo_split_devices), 14),
         ("--multi_host", args.multi_host, 14),
-        (f"--quads_mode={args.quads_mode}",
-         (args.quads_mode.startswith("o_")
-          and args.quads_mode not in _OBSTACLE_MODES)
-         or args.quads_mode == "run_away", "11b"),
         ("bfloat16 (--dtype, --model_dtype)",
          "bfloat16" in (args.dtype, args.model_dtype), 8),
     )

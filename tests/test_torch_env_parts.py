@@ -34,6 +34,7 @@ from quadswarm_tpu.ops import rotations as j_rot
 from quadswarm_tpu_torch.env import collisions as t_coll
 from quadswarm_tpu_torch.env import controls as t_controls
 from quadswarm_tpu_torch.env import downwash as t_downwash
+from quadswarm_tpu_torch.env import dynamics as t_dyn
 from quadswarm_tpu_torch.env import neighbors as t_neighbors
 from quadswarm_tpu_torch.env import obs as t_obs
 from quadswarm_tpu_torch.env import params as t_params
@@ -161,8 +162,19 @@ def test_crazyflie_params_and_inertia():
         np.testing.assert_allclose(getattr(carried, f.name).numpy(),
                                    getattr(got, f.name).numpy(),
                                    rtol=1e-12, atol=0, err_msg=f.name)
-    with pytest.raises(NotImplementedError):
-        t_params.make_dynamics_params(per_drone=True)
+    # a per-drone fleet: the same stacked values as the JAX package's, bit
+    # for bit in float64
+    want = j_params.make_dynamics_params(
+        num_agents=3, per_drone=True, dtype=np.float64,
+        dyn_sampler_1={"class": "RelativeSampler", "noise_ratio": 0.2})
+    got = t_params.make_dynamics_params(
+        num_agents=3, per_drone=True, dtype=torch.float64,
+        dyn_sampler_1={"class": "RelativeSampler", "noise_ratio": 0.2})
+    assert got.per_drone and got.mass.shape == (3,)
+    for f in dataclasses.fields(got):
+        np.testing.assert_array_equal(getattr(got, f.name).numpy(),
+                                      np.asarray(getattr(want, f.name)),
+                                      err_msg=f.name)
 
 
 def test_rotations_float64():
@@ -201,8 +213,21 @@ def test_raw_control(zero_action_middle):
         t_controls.apply_control("raw", t64(a),
                                  zero_action_middle=zero_action_middle),
         np.asarray(j_controls.raw_control(j64(a), zero_action_middle)), **F64)
-    with pytest.raises(NotImplementedError):
-        t_controls.apply_control("mellinger", t64(a))
+    # a model-based mode through the same dispatch: Mellinger toward a goal
+    rng = np.random.default_rng(11)
+    params = t_params.make_dynamics_params(dtype=torch.float64)
+    j_inv = t_controls.jacobian_inv(params)
+    state = t_dyn.init_state((10,), torch.float64).replace(
+        pos=t64(rng.normal(0, 1, (10, 3))), vel=t64(rng.normal(0, 1, (10, 3))),
+        rot=t64(random_rotations(rng, 10)),
+        omega=t64(rng.normal(0, 1, (10, 3))))
+    goal = rng.normal(0, 3, (10, 3))
+    got = t_controls.apply_control("mellinger", t64(a), j_inv=j_inv,
+                                   state=state, goal=t64(goal))
+    want = j_controls.mellinger_control(
+        j64(j_inv.numpy()), j64(state.pos.numpy()), j64(state.vel.numpy()),
+        j64(state.rot.numpy()), j64(state.omega.numpy()), j64(goal))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F64)
 
 
 # --------------------------------------------------------------------------
@@ -416,10 +441,12 @@ def test_formation_goals(n):
     from quadswarm_tpu_torch.env import formations as t_form
 
     center = np.array([0.3, -1.0, 2.0])
+    # the formation id is data: one compile serves all eight
+    j_goals = jax.jit(j_form.generate_goals, static_argnums=(0, 6))
     for fid in range(t_form.NUM_FORMATIONS):
         npl = 50 if 4 <= fid <= 6 else 8
-        want = j_form.generate_goals(n, fid, j64(center), j64(0.7), j64(0.4),
-                                     jnp.int32(npl), jnp.float64)
+        want = j_goals(n, jnp.int32(fid), j64(center), j64(0.7), j64(0.4),
+                       jnp.int32(npl), jnp.float64)
         got = t_form.generate_goals(n, fid, t64(center), 0.7, 0.4, npl,
                                     torch.float64)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **F64,

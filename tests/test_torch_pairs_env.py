@@ -217,9 +217,17 @@ def test_flag_is_supported_and_too_many_agents_refused():
     with pytest.raises(ValueError, match="2048"):
         t_multi.EnvConfig(num_agents=2049,
                           use_pallas_pairs=True).check_supported()
-    with pytest.raises(NotImplementedError):
-        t_multi.EnvConfig(quads_mode="o_swap_goals",
-                          use_pallas_pairs=True).check_supported()
+    # o_swap_goals (refused before it was ported) runs on the pairs route
+    cfg = t_multi.EnvConfig(num_agents=16, quads_mode="o_swap_goals",
+                            neighbor_visible_num=6, use_pallas_pairs=True)
+    cfg.check_supported()
+    params = t_make_params(dt=cfg.dt)
+    gen = torch.Generator().manual_seed(0)
+    state, _ = t_multi.env_reset(cfg, params, gen, 2, device="cpu")
+    state, obs, *_ = t_multi.batched_env_step(
+        cfg, params, state, torch.zeros(2, 16, 4), gen)
+    assert state.prev_coll_pairs.shape == (2, 16, 128)
+    assert torch.isfinite(obs).all()
 
 
 @pytest.mark.parametrize("mode", sorted(

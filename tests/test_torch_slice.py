@@ -29,7 +29,6 @@ from quadswarm_tpu.env import dynamics as j_dyn
 from quadswarm_tpu.env import multi as j_multi
 from quadswarm_tpu.env import scenarios as j_scen
 from quadswarm_tpu.env import sensor as j_sensor
-from quadswarm_tpu.env.controls import raw_control
 from quadswarm_tpu.env.params import make_dynamics_params as j_make_params
 from quadswarm_tpu.env.reward import RewardCoeffs as JRewardCoeffs
 from quadswarm_tpu.models import actor_critic as j_ac
@@ -124,16 +123,24 @@ def _jax_step(jcfg, jparams, jstate, actions, draws):
     env = lambda tree, e: jax.tree.map(lambda x: x[e], tree)
     stack = lambda trees: jax.tree.map(lambda *xs: jnp.stack(xs), *trees)
     dyns = []
+    per_drone = j_multi._per_drone(jparams)
+    # per-drone params: drone i flies row i (the JAX env vmaps over drones)
+    substep = (jax.vmap(lambda p, s, t, o, y: j_dyn.dynamics_substep(
+        p, dyn_cfg, s, t, o, y)) if per_drone else
+        lambda p, s, t, o, y: j_dyn.dynamics_substep(p, dyn_cfg, s, t, o, y))
+    ratio = jparams.thrust_noise_ratio
     for e in range(n_envs):
         dyn = jstate.dyn
         with taped(j_dyn, [draws["ou"][e]]):
             ou = j_dyn.ou_noise_step(dyn.ou_state[e], jax.random.PRNGKey(0),
-                                     jparams.thrust_noise_ratio)
+                                     ratio[:, None] if per_drone else ratio)
+        thrust = j_multi._control_thrusts(jcfg, jparams, env(jstate, e),
+                                          actions[e],
+                                          jstate.scenario.goals[e])
         dyn = env(dyn, e).replace(ou_state=ou)
-        thrust = raw_control(actions[e])
         for _ in range(jcfg.sim_steps):
-            dyn = j_dyn.dynamics_substep(jparams, dyn_cfg, dyn, thrust, ou,
-                                         jnp.asarray(draws["yaw"][e]))
+            dyn = substep(jparams, dyn, thrust, ou,
+                          jnp.asarray(draws["yaw"][e]))
         dyns.append(dyn)
     pairs = None
     if jcfg.use_pallas_pairs:
@@ -232,6 +239,63 @@ def test_slice_lockstep_with_jax(start):
         seen["ceiling"] |= bool(tstate.prev_ceiling.any())
         seen["floor"] |= bool(tstate.dyn.crashed_floor.any())
     assert all(seen.values()), seen
+
+
+PER_DRONE = {"class": "RelativeSampler", "noise_ratio": 0.2,
+             "sampler": "normal"}
+
+
+@pytest.mark.parametrize("control_mode", ["raw", "mellinger"])
+def test_per_drone_fleet_lockstep_with_jax(start, control_mode):
+    """A randomized fleet (RelativeSampler, noise 0.2, one parameter set per
+    drone) from the same converted JAX state: 3 ticks of the env step with
+    injected draws agree with JAX's, in raw control and in Mellinger
+    control (J^-1 per drone)."""
+    jcfg0, _, jstate, _, _, _, _ = start
+    kw = dict(num_agents=N, dyn_sampler_1=PER_DRONE, per_drone=True, seed=3)
+    jparams = j_make_params(**kw)
+    tparams = t_make_params(**kw)
+    jcfg = jcfg0.replace(control_mode=control_mode)
+    tcfg = t_multi.EnvConfig(**ENV_KW, control_mode=control_mode)
+    tstate = env_state_from_numpy(jax_tree_numpy(jstate))
+    rng = np.random.default_rng(5)
+    for _ in range(3):
+        actions = rng.uniform(-1, 1, (E, N, 4)).astype(np.float32)
+        draws = _draws(rng)
+        jstate, jobs, jrew, _, _ = _jax_step(jcfg, jparams, jstate,
+                                             jnp.asarray(actions), draws)
+        tstate, tobs, trew, _, _ = t_multi.batched_env_step(
+            tcfg, tparams, tstate, torch.from_numpy(actions), None,
+            _torch(draws))
+        assert_matches_jax(tstate, jstate, skip=("scen_seed",), tol=TOL,
+                           field_tol=FIELD_TOL)
+        np.testing.assert_allclose(tobs.numpy(), np.asarray(jobs), **TOL)
+        np.testing.assert_allclose(trew.numpy(), np.asarray(jrew), **TOL)
+
+
+def test_per_drone_randomized_dynamics():
+    """tests/test_env.py's case: from one spawn point with equal actions,
+    drones of different parameters drift apart."""
+    cfg = t_multi.EnvConfig(num_agents=4, neighbor_obs_type="pos_vel",
+                            neighbor_visible_num=1,
+                            quads_mode="static_same_goal",
+                            use_sensor_noise=False)
+    params = t_make_params(dyn_sampler_1=PER_DRONE, num_agents=4,
+                           per_drone=True, dt=cfg.dt, seed=1)
+    assert params.mass.shape == (4,)
+    assert len(np.unique(params.mass.numpy())) == 4
+    gen = torch.Generator().manual_seed(0)
+    state, _ = t_multi.env_reset(cfg, params, gen, 1, device="cpu")
+    dyn = state.dyn.replace(
+        pos=torch.tensor([[[0.0, 0.0, 2.0]] * 4]),
+        vel=torch.zeros(1, 4, 3), omega=torch.zeros(1, 4, 3),
+        rot=torch.eye(3).expand(1, 4, 3, 3).contiguous())
+    state = state.replace(dyn=dyn)
+    for _ in range(20):
+        state, *_ = t_multi.batched_env_step(
+            cfg, params, state, torch.full((1, 4, 4), 0.2), gen)
+    z = state.dyn.pos[0, :, 2].numpy()
+    assert len(np.unique(np.round(z, 6))) > 1, z
 
 
 def test_auto_reset_resets_finished_envs_only():

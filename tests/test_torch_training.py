@@ -350,13 +350,22 @@ def test_train_sh_flags_parse_alike_in_both_packages(script):
       "--pbt_mix_policies_in_one_env=True"], NotImplementedError),
     (["--async_rl=True", "--appo_split_devices=1,1"], NotImplementedError),
     (["--multi_host=True"], NotImplementedError),
-    (["--quads_mode=o_swap_goals"], NotImplementedError),
-    (["--quads_mode=run_away"], NotImplementedError),
     (["--dtype=bfloat16"], NotImplementedError),
 ])
 def test_flags_of_paths_not_ported_are_refused(extra, error):
     with pytest.raises(error, match="ROADMAP.md|plain"):
         t_config.parse_swarm_cfg(_train_sh_flags() + extra)
+
+
+@pytest.mark.parametrize("mode", ["o_swap_goals", "run_away"])
+def test_flags_of_ported_paths_parse(mode):
+    """Scenario modes the CLI refused before they were ported parse into
+    an env config that runs them."""
+    args = t_config.parse_swarm_cfg(_train_sh_flags()
+                                    + [f"--quads_mode={mode}"])
+    env = t_config.env_config_from_args(args)
+    assert env.quads_mode == mode
+    env.check_supported()
 
 
 def _tiny_trainer(seed=0, replay=0.75):
