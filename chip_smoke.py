@@ -87,17 +87,36 @@ Phases, each raising on failure:
      and Adam state equal its source's bit for bit and differ after one
      more iteration of each, peak memory with 8 policies resident; K1 on a
      policy's state; then the CLI's PBT branch with 2 policies at a small
-     width, which writes checkpoint_p0 and checkpoint_p1.
+     width, which writes checkpoint_p0 and checkpoint_p1;
+ 14. bf16: bfloat16 compute.  train.sh's actor-critic at B = 8,192 with
+     --model_dtype=bfloat16 on the card against the same in bfloat16 on
+     the CPU and against float32 on the card, the forwards timed in turns;
+     train.sh's Trainer with --model_dtype=bfloat16 for 2 iterations in
+     turns with 2 float32 ones (the train phase's lines); --dtype=bfloat16
+     with train.sh's flags at 1024 x 8: ms a tick in turns with float32,
+     the event table float32, K1 on the bfloat16 state against its plain
+     version, the env step on the card against the CPU for 20 ticks;
+ 15. mixed: mixed-policy PBT, runs/pbt_quads_multi_obstacles' flags plus
+     --pbt_mix_policies_in_one_env=True at full width (8 stacked policies
+     sharing 512 envs x 8 x 128): 2 iterations (split, agent-steps/s, K1
+     128 an iteration, syncs, peak memory), a round with injected
+     objectives copying weights and Adam moments bit for bit, the stacked
+     heads on the card against the CPU, K1 on the state reached; the CLI's
+     mixed branch at a small width, 8 checkpoints and pbt_state.json, and
+     a resume.
 
     python3 chip_smoke.py --phases build,profile --trace out/trace.json
     python3 chip_smoke.py --phases build,profile --profile_path swarm
     python3 chip_smoke.py --phases build,profile --profile_path train
     python3 chip_smoke.py --phases build,profile --profile_path final
+    python3 chip_smoke.py --phases build,profile --profile_path bf16
+    python3 chip_smoke.py --phases build,profile --profile_path mixed
 
 adds a torch.profiler breakdown of the flagship rollout, of the swarm
-rollout, or of train.sh's Trainer or the final obstacle run's (replay
-rollout ticks, then minibatch steps): device time by kernel, the device's
-busy share; with --trace it writes the Chrome trace.
+rollout, or of train.sh's Trainer (in float32 or bfloat16), the final
+obstacle run's or the PBT run's mixed runner (rollout ticks, then
+minibatch steps): device time by kernel, the device's busy share; with
+--trace it writes the Chrome trace.
 
     python3 chip_smoke.py --phases build,sweep
 
@@ -238,6 +257,10 @@ def random_drone_batch(b: int, cfg, gen, device):
 # reads 26 f32 state + bool + int32 + 4 cmds + 4 OU + 1 yaw = 145 B,
 # writes 38 f32 + 4 bool + int32 = 160 B.
 K1_BYTES_PER_DRONE = 305
+# On a bfloat16 state (--dtype=bfloat16) the same fields are 2 bytes each:
+# reads 26 + 4 + 4 + 1 bfloat16 + bool + int32 = 75 B, writes 38 bfloat16 +
+# 4 bool + int32 = 84 B (the wrapper's float32 staging is its own cost).
+K1_BYTES_PER_DRONE_BF16 = 159
 # Float operations per drone per sub-step without the data-dependent
 # branches (motor filter 40, torques 36, Rodrigues 150 counting sincos as
 # 20, omega 30, position 9, force and acceleration 20, velocity and
@@ -259,7 +282,9 @@ def k1_bound_ms(state, sim_steps: int, ortho_every: int,
     n_floor = int(torch.sum(state.pos[:, 2] <= 0.1))
     flops = (sim_steps * b * K1_FLOPS_PER_SUBSTEP + n_ortho * K1_FLOPS_ORTHO
              + sim_steps * n_floor * K1_FLOPS_FLOOR)
-    t_bytes = (b * K1_BYTES_PER_DRONE + table_bytes) / HBM_BYTES_PER_S * 1e3
+    per_drone = (K1_BYTES_PER_DRONE_BF16
+                 if state.pos.dtype == torch.bfloat16 else K1_BYTES_PER_DRONE)
+    t_bytes = (b * per_drone + table_bytes) / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -281,6 +306,7 @@ def check_dynamics_kernel(card: str, label: str, params, cfg, state, cmds,
     torch.cuda.synchronize()
     want = dynamics_tick(params, cfg, state, cmds, ou, yaw)
     max_err = 0.0
+    bf16 = state.pos.dtype == torch.bfloat16
     for (name, g), (_, w) in zip(leaves(got), leaves(want)):
         if g.dtype in (torch.bool, torch.int32):
             n_bad = int(torch.sum(g != w))
@@ -289,6 +315,13 @@ def check_dynamics_kernel(card: str, label: str, params, cfg, state, cmds,
                                      "entries differ from the plain version")
             continue
         tol = tol_all or DYN_TOL_FIELD.get(name, DYN_TOL)
+        if bf16:
+            # both round float32 results to bfloat16: one ulp apart
+            if g.dtype != torch.bfloat16:
+                raise AssertionError(f"K1 {name}: {g.dtype} on a bfloat16 "
+                                     "state")
+            g, w = g.float(), w.float()
+            tol = dict(rtol=max(tol["rtol"], BF16_K1_RTOL), atol=tol["atol"])
         if not torch.allclose(g, w, **tol):
             bad = (g - w).abs() - tol["atol"] - tol["rtol"] * w.abs()
             i = int(bad.reshape(b, -1).max(-1).values.argmax())
@@ -314,9 +347,13 @@ def check_dynamics_kernel(card: str, label: str, params, cfg, state, cmds,
                                      cfg.orthonormalize_every, table_bytes)
     threads = dk.block_threads()
     floor_ms = launch_floor_ms(card, f"K1 at B={b}", -(-b // threads), threads)
-    tol = tol_all or DYN_TOL
-    print(f"[{card}] K1 dynamics, {label}, B={b}: max_abs_err={max_err:.3g} "
-          f"(rtol {tol['rtol']}, atol {tol['atol']}"
+    tol = dict(tol_all or DYN_TOL)
+    if bf16:
+        tol["rtol"] = max(tol["rtol"], BF16_K1_RTOL)
+    print(f"[{card}] K1 dynamics, {label}, B={b}"
+          + (", bfloat16 state" if bf16 else "")
+          + f": max_abs_err={max_err:.3g} "
+          f"(rtol {tol['rtol']:.3g}, atol {tol['atol']}"
           + ("" if tol_all else f"; omega_dot atol "
              f"{DYN_TOL_FIELD['omega_dot']['atol']}")
           + f") per call {ms * 1e3:.2f} us, device {device_ms * 1e3:.2f} us, "
@@ -336,10 +373,11 @@ def check_on_env_state(card: str, label: str, states, cfg, params) -> dict:
     dyn = map_fields(lambda x: x.reshape((-1,) + x.shape[2:]), states.dyn)
     b = dyn.pos.shape[0]
     gen = torch.Generator("cuda").manual_seed(2)
-    cmds = torch.full((b, 4), 0.5, device="cuda")
-    ou = 0.01 * torch.randn((b, 4), generator=gen, device="cuda")
-    yaw = torch.rand((b,), generator=gen, device="cuda") * 2 * math.pi \
-        - math.pi
+    dt = dyn.pos.dtype          # a bfloat16 env's inputs are bfloat16
+    cmds = torch.full((b, 4), 0.5, device="cuda", dtype=dt)
+    ou = (0.01 * torch.randn((b, 4), generator=gen, device="cuda")).to(dt)
+    yaw = (torch.rand((b,), generator=gen, device="cuda") * 2 * math.pi
+           - math.pi).to(dt)
     return check_dynamics_kernel(card, label, params,
                                  cfg.dynamics_config(params.arm), dyn, cmds,
                                  ou, yaw, tol_all=TRAJ_TOL)
@@ -1020,9 +1058,12 @@ def _profile(card: str, label: str, fn, count: int, unit: str,
 def phase_profile(card: str, trace: str | None, path: str) -> None:
     """torch.profiler over 8 rollout ticks at the flagship width (`path`
     "flagship": 1024 x 8) or on the large-swarm path ("swarm": 256 x 128,
-    pair kernels on); or ("train") over train.sh's Trainer, ("final") over
-    the final obstacle run's: 8 rollout ticks with collision replay, then
-    64 of its minibatch steps."""
+    pair kernels on); or ("train") over train.sh's Trainer, ("bf16") over
+    it with --model_dtype=bfloat16 --dtype=bfloat16, ("final") over the
+    final obstacle run's: 8 rollout ticks with collision replay, then 64 of
+    its minibatch steps; or ("mixed") over the PBT run file's mixed-policy
+    runner: 8 rollout ticks, then 32 stacked minibatch steps of its 8
+    policies."""
     import torch
     from quadswarm_tpu_torch.env.multi import EnvConfig, env_reset
     from quadswarm_tpu_torch.env.params import make_dynamics_params
@@ -1031,9 +1072,14 @@ def phase_profile(card: str, trace: str | None, path: str) -> None:
     from quadswarm_tpu_torch.parallel import ppo as P
 
     t = 8
-    if path in ("train", "final"):
-        tr = _flagship_trainer(argv=None if path == "train"
-                               else _final_run_flags())
+    if path == "mixed":
+        _profile_mixed(card, trace, t)
+        return
+    if path in ("train", "bf16", "final"):
+        tr = _flagship_trainer(argv={
+            "train": None, "final": _final_run_flags(),
+            "bf16": train_sh_flags() + ["--model_dtype=bfloat16",
+                                        "--dtype=bfloat16"]}[path])
         tr.set_ppo_cfg(tr.ppo_cfg.replace(rollout=t))
         tr.iteration()                                   # warm-up
         rollout = lambda: P.collect_rollout(
@@ -1067,6 +1113,53 @@ def phase_profile(card: str, trace: str | None, path: str) -> None:
     _profile(card, f"{t} rollout ticks at {e}x{cfg.num_agents} ({path})",
              lambda: P.collect_rollout(cfg, params, model, ppo, states, obs,
                                        gen, rew), t, "tick", trace)
+
+
+def _profile_mixed(card: str, trace: str | None, t: int) -> None:
+    """The mixed-policy runner at the PBT run file's width (8 policies, 512
+    envs x 8, rollout `t`): `t` rollout ticks, then 32 stacked minibatch
+    steps on that rollout's trajectory."""
+    import shlex
+    import torch
+    from quadswarm_tpu_torch.env.params import make_dynamics_params
+    from quadswarm_tpu_torch.parallel import pbt_mixed as M
+    from quadswarm_tpu_torch.parallel.ppo import (
+        compute_gae, shuffled_minibatches)
+    from quadswarm_tpu_torch.runs import pbt_quads_multi_obstacles as run
+    from quadswarm_tpu_torch.training import config as C
+
+    (_, cmd), = run.RUN_DESCRIPTION.commands("unused")
+    args = C.parse_swarm_cfg(shlex.split(cmd)[3:] + [
+        "--pbt_mix_policies_in_one_env=True", f"--rollout={t}"])
+    env_cfg = C.env_config_from_args(args)
+    r = M.MixedPBTRunner(
+        env_cfg, C.ppo_config_from_args(args),
+        lambda: C.model_from_args(args, env_cfg, device="cuda"),
+        make_dynamics_params(dt=env_cfg.dt), C.pbt_config_from_args(args),
+        device="cuda")
+    r.iteration()                                        # warm-up
+    rollout = lambda: M.mixed_rollout(
+        r.env_cfg, r.dyn_params, r.heads, r.ppo_cfg, r.env_states, r.obs,
+        r.assignment, r.coeff_table(), r.gen, r.replay_states, r.norm_state)
+    *_, traj, last_value, _ = rollout()
+    adv, ret = compute_gae(traj, last_value, r.ppo_cfg.gamma,
+                           r.ppo_cfg.gae_lambda)
+    mbs = shuffled_minibatches(
+        (traj.obs, traj.actions, traj.log_prob, traj.value, adv, ret,
+         traj.assignment), tuple(traj.reward.shape), r.ppo_cfg.batch_size,
+        r.gen)
+    steps = mbs[0].shape[0]
+
+    def learn():
+        for i in range(steps):
+            mb = tuple(x[i] for x in mbs)
+            M.stacked_sgd_step(r.heads, r.optimizer, r.ppo_cfg, mb[:6],
+                               mb[6], r.norm_state)
+
+    _profile(card, f"{t} mixed rollout ticks at 512x8, 8 policies", rollout,
+             t, "tick", None)
+    _profile(card, f"{steps} stacked minibatch steps of 1024, 8 policies",
+             learn, steps, "step", trace)
 
 
 def _reset_counts() -> None:
@@ -2659,6 +2752,420 @@ def phase_surface(card: str) -> tuple:
     return launches, {"K1": shared, "K1pd": per_drone}
 
 
+# ---------------------------------------------------------------------------
+# bfloat16 compute (--model_dtype, --dtype) and mixed-policy PBT
+# ---------------------------------------------------------------------------
+
+# A bfloat16 model on the card against the same model in bfloat16 on the
+# CPU: cuBLAS and the CPU sum their products in another order and round
+# once or twice per layer, so a few bfloat16 ulps apart (the CPU tests hold
+# the port to flax within the same bound).  The bfloat16 model against the
+# float32 one on the card: bfloat16's rounding through the layers.
+BF16_RTOL = 2e-2
+BF16_F32_RTOL = 1e-1
+# K1 on a bfloat16 state: kernel and plain version each compute in float32
+# (within DYN_TOL of each other) and round to bfloat16, so one ulp apart.
+BF16_K1_RTOL = 2.0 ** -7
+BF16_ITERS = 2
+BF16_TICKS = 100          # a turn of the env; 2 turns a dtype
+BF16_AGREE_TICKS = 20
+
+
+def _bf16_close(label: str, got, want, rtol: float = BF16_RTOL) -> float:
+    """|got - want| <= rtol |want| + rtol max|want|, as floats; returns the
+    largest difference over the largest entry."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    top = float(want.abs().max())
+    err = (got - want).abs()
+    if bool((err > rtol * want.abs() + rtol * top).any()):
+        raise AssertionError(f"{label}: differs by {float(err.max())} "
+                             f"(largest entry {top}, rtol {rtol})")
+    return float(err.max()) / max(top, 1e-30)
+
+
+def _bf16_model(card: str) -> None:
+    """train.sh's actor-critic at B = 8,192: bfloat16 on the card against
+    bfloat16 on the CPU and against float32 on the card; the two forwards
+    timed in turns."""
+    import copy
+    import torch
+    from quadswarm_tpu_torch.models.encoders import set_compute_dtype
+    from quadswarm_tpu_torch.training import config as C
+
+    args = C.parse_swarm_cfg(train_sh_flags() + ["--model_dtype=bfloat16"])
+    env_cfg = C.env_config_from_args(args)
+    torch.manual_seed(0)
+    cpu = C.model_from_args(args, env_cfg, device="cpu")
+    if cpu.dtype != torch.bfloat16 or {p.dtype for p in cpu.parameters()} \
+            != {torch.float32}:
+        raise AssertionError("the bfloat16 model's parameters are not float32")
+    gpu = copy.deepcopy(cpu).cuda()
+    gpu32 = copy.deepcopy(gpu)
+    set_compute_dtype(gpu32, torch.float32)
+    obs = 2 * torch.randn((8192, env_cfg.obs_dim),
+                          generator=torch.Generator().manual_seed(3))
+    obs_gpu = obs.cuda()
+    with torch.no_grad():
+        want, got, ref = cpu(obs), gpu(obs_gpu), gpu32(obs_gpu)
+        if (got[0].dtype, got[1].dtype, got[2].dtype) != (
+                torch.bfloat16, torch.float32, torch.bfloat16):
+            raise AssertionError("the bfloat16 model's output dtypes")
+        vs_cpu = max(_bf16_close(f"bf16 model {k} card vs CPU", g, w)
+                     for k, g, w in zip(("mean", "log_std", "value"), got,
+                                        want))
+        vs_f32 = max(_bf16_close(f"bf16 model {k} vs float32", g, w,
+                                 BF16_F32_RTOL)
+                     for k, g, w in zip(("mean", "log_std", "value"), got,
+                                        ref))
+        times = {"bf16": [], "f32": []}
+        for which in ("bf16", "f32", "f32", "bf16"):
+            model = gpu if which == "bf16" else gpu32
+            times[which].append(cuda_time_ms(lambda: model(obs_gpu), 50))
+    print(f"[{card}] bf16 actor-critic (train.sh's, B=8,192): card vs CPU "
+          f"largest difference {vs_cpu:.3g} of the largest entry (bound "
+          f"rtol {BF16_RTOL} + {BF16_RTOL} of it); vs float32 on the card "
+          f"{vs_f32:.3g} (bound {BF16_F32_RTOL}); forward in turns "
+          f"bf16/f32/f32/bf16: bf16 {times['bf16'][0]:.3f}, "
+          f"{times['bf16'][1]:.3f} ms, float32 {times['f32'][0]:.3f}, "
+          f"{times['f32'][1]:.3f} ms (CUDA events, 50 calls)")
+
+
+def _bf16_trainer(card: str) -> dict:
+    """train.sh's Trainer with --model_dtype=bfloat16 for BF16_ITERS
+    iterations in turns with BF16_ITERS float32 ones (bf16 alone first,
+    then f32, f32, bf16): split, ms a minibatch, finite losses, K1 128 an
+    iteration, one sync a tick, peak memory.  Returns the bfloat16
+    iterations' launch counts."""
+    import torch
+
+    bf16 = _flagship_trainer(argv=train_sh_flags()
+                             + ["--model_dtype=bfloat16"])
+    if bf16.model.dtype != torch.bfloat16 or bf16.env_cfg.dtype != \
+            torch.float32:
+        raise AssertionError("the bf16 trainer is not at --model_dtype=bf16")
+    total = _counts()
+    walls = {"bf16": [], "f32": []}
+
+    def turn(which, trainer):
+        counts, wall, _ = _iterations(card, f"train {which}", trainer, 1)
+        walls[which] += wall
+        if which == "bf16":
+            for kid in total:
+                total[kid] += counts[kid]
+
+    turn("bf16", bf16)
+    f32 = _flagship_trainer()
+    turn("f32", f32)
+    turn("f32", f32)
+    turn("bf16", bf16)
+    if not all(p.dtype == torch.float32 for p in bf16.model.parameters()):
+        raise AssertionError("bf16 trainer: parameters left float32")
+    print(f"[{card}] train bf16 against float32 in turns (bf16 first alone,"
+          f" then both resident): bf16 {walls['bf16']} s, float32 "
+          f"{walls['f32']} s an iteration")
+    del bf16, f32
+    _free()
+    return total
+
+
+def _bf16_agree(card: str, cfg, params, states) -> None:
+    """BF16_AGREE_TICKS ticks of the bfloat16 env step on the card against
+    the CPU, both from the CPU state each tick with the same draws (in
+    bfloat16, as the env's generator makes them).  Every float leaf within
+    BF16_RTOL of its largest entry; neighbour slots of two drones whose
+    bfloat16 metrics tie may swap, so up to ROUTE_SWAPS of the observation
+    rows may differ beyond that."""
+    import torch
+    from quadswarm_tpu_torch.env.multi import batched_env_step
+    from quadswarm_tpu_torch.utils.struct import leaves, map_fields
+
+    e, n = states.tick.shape[0], cfg.num_agents
+    gen = torch.Generator().manual_seed(9)
+    bf = lambda x: x.to(torch.bfloat16)
+    worst, swapped = 0.0, 0
+    for _ in range(BF16_AGREE_TICKS):
+        actions = torch.rand((e, n, 4), generator=gen) * 2 - 1
+        draws = {k: ({kk: bf(vv) for kk, vv in v.items()}
+                     if isinstance(v, dict) else bf(v))
+                 for k, v in _draws(e, n, gen).items()}
+        cpu = batched_env_step(cfg, params, states, actions, None, draws)
+        gpu = batched_env_step(cfg, params, _to_cuda(states), actions.cuda(),
+                               None, _to_cuda(draws))
+        for (name, g), (_, c) in zip(leaves(gpu[0]), leaves(cpu[0])):
+            g = g.cpu()
+            if g.dtype != c.dtype:
+                raise AssertionError(f"bf16 env {name}: dtype {g.dtype} on "
+                                     f"the card, {c.dtype} on the CPU")
+            if g.is_floating_point():
+                worst = max(worst, _bf16_close(f"bf16 env {name}", g, c))
+            elif not torch.equal(g, c):
+                raise AssertionError(f"bf16 env {name}: card and CPU differ")
+        g_obs, c_obs = gpu[1].cpu().float(), cpu[1].float()
+        top = float(c_obs.abs().max())
+        bad = ((g_obs - c_obs).abs() > BF16_RTOL * (c_obs.abs() + top)).any(
+            -1)
+        swapped += int(bad.sum())
+        if bad.sum() > ROUTE_SWAPS * bad.numel():
+            raise AssertionError(f"bf16 env obs: {int(bad.sum())} of "
+                                 f"{bad.numel()} rows differ")
+        worst = max(worst, _bf16_close("bf16 env reward", gpu[2], cpu[2]))
+        states = cpu[0]
+    print(f"[{card}] bf16 env step card vs CPU, {e}x{n}, "
+          f"{BF16_AGREE_TICKS} ticks: largest difference {worst:.3g} of a "
+          f"leaf's largest entry (bound rtol {BF16_RTOL} + {BF16_RTOL} of "
+          f"it); observation rows beyond it (neighbour slots swapped at a "
+          f"bfloat16 tie) {swapped}")
+
+
+def _bf16_env(card: str) -> tuple:
+    """--dtype=bfloat16 with train.sh's flags at 1024 x 8: ms a tick in
+    turns with float32 (bf16, f32, f32, bf16, BF16_TICKS ticks each), the
+    event table float32, K1 on the bfloat16 state against its plain
+    version, the env step on the card against the CPU.  Returns (the
+    bfloat16 turns' launch counts, K1's check)."""
+    import torch
+    from quadswarm_tpu_torch.env.multi import batched_env_step, env_reset
+    from quadswarm_tpu_torch.env.params import make_dynamics_params
+    from quadswarm_tpu_torch.training import config as C
+
+    envs = {}
+    for which, extra in (("bf16", ["--dtype=bfloat16"]), ("f32", [])):
+        cfg = C.env_config_from_args(C.parse_swarm_cfg(
+            train_sh_flags() + extra))
+        params = make_dynamics_params(dt=cfg.dt)
+        gen = torch.Generator("cuda").manual_seed(4)
+        states, _ = env_reset(cfg, params, gen, 1024, device="cuda")
+        envs[which] = [cfg, params, gen, states]
+    cfg16, params16, _, states16 = envs["bf16"]
+    if states16.dyn.pos.dtype != torch.bfloat16 or \
+            states16.scenario.goals.dtype != torch.bfloat16:
+        raise AssertionError("the bf16 env's state is not bfloat16")
+    if states16.scenario.events.dtype != torch.float32:
+        raise AssertionError("the event table is not float32")
+    total = _counts()
+    ms = {"bf16": [], "f32": []}
+    for which in ("bf16", "f32", "f32", "bf16"):
+        cfg, params, gen, states = envs[which]
+        act = torch.zeros((1024, 8, 4), device="cuda")
+        torch.cuda.synchronize()
+        _reset_counts()
+        with SyncCounter() as syncs:
+            t0 = time.perf_counter()
+            for _ in range(BF16_TICKS):
+                actions = act.uniform_(-1, 1, generator=gen)
+                states, obs, rew, *_ = batched_env_step(
+                    cfg, params, states, actions, gen)
+            torch.cuda.synchronize()
+        ms[which].append((time.perf_counter() - t0) / BF16_TICKS * 1e3)
+        counts = _read_counts()
+        if counts != _counts(K1=BF16_TICKS) or syncs.implicit != BF16_TICKS:
+            raise AssertionError(f"bf16 env {which}: launches {counts}, "
+                                 f"{syncs.implicit} syncs")
+        if (obs.dtype, rew.dtype) != ((torch.bfloat16, torch.float32)
+                                      if which == "bf16"
+                                      else (torch.float32, torch.float32)):
+            raise AssertionError(f"bf16 env {which}: obs {obs.dtype}, "
+                                 f"reward {rew.dtype}")
+        _finite(f"{which} env obs", obs)
+        envs[which][3] = states
+        if which == "bf16":
+            for kid in total:
+                total[kid] += counts[kid]
+    states16 = envs["bf16"][3]
+    if states16.scenario.events.dtype != torch.float32 or \
+            states16.dyn.pos.dtype != torch.bfloat16:
+        raise AssertionError("the bf16 env's dtypes changed on the way")
+    print(f"[{card}] bf16 env (--dtype=bfloat16, train.sh's flags, 1024x8, "
+          f"{BF16_TICKS} random-action ticks a turn, one sync a tick): bf16 "
+          f"{ms['bf16'][0]:.2f}, {ms['bf16'][1]:.2f} ms a tick; float32 "
+          f"{ms['f32'][0]:.2f}, {ms['f32'][1]:.2f} ms a tick (in turns "
+          "bf16/f32/f32/bf16); event table float32, goals bfloat16")
+    check = check_on_env_state(card, "bf16 env state", states16, cfg16,
+                               params16)
+    cpu_states = _to_cpu(states16)
+    _bf16_agree(card, cfg16, params16, cpu_states)
+    return total, check
+
+
+def _to_cpu(x):
+    from quadswarm_tpu_torch.utils.struct import map_fields
+    return map_fields(lambda t: t.cpu(), x)
+
+
+def phase_bf16(card: str) -> tuple:
+    """bfloat16 compute: the model (--model_dtype=bfloat16), train.sh's
+    Trainer with it in turns with float32, and the bfloat16 env
+    (--dtype=bfloat16).  Returns (launch counts by path, K1's check on the
+    bfloat16 state)."""
+    t0 = time.perf_counter()
+    _bf16_model(card)
+    launches = {"train-bf16-1024x8": _bf16_trainer(card)}
+    launches["env-bf16-1024x8"], check = _bf16_env(card)
+    print(f"[{card}] bf16 phase: {time.perf_counter() - t0:.1f} s")
+    return launches, check
+
+
+MIXED_ITERS = 2
+
+
+def _mixed_round(card: str, runner) -> None:
+    """A round with injected objectives (policy p scores p): each of the
+    bottom two adopts a top policy's slices, equal bit for bit, in storage
+    of its own."""
+    import torch
+
+    runner.objective_hist = [[float(p)] for p in range(8)]
+    params = list(runner.heads.params.values())
+    before = [p.detach().clone() for p in params]
+    runner.pbt_round()
+    pairs = []
+    for b in (0, 1):
+        src = [s for s in (6, 7) if all(torch.equal(p[b], p[s])
+                                        for p in params)]
+        if len(src) != 1:
+            raise AssertionError(f"mixed round: policy {b} from {src}")
+        s = src[0]
+        for p, old in zip(params, before):
+            st = runner.optimizer.state[p]
+            if not (torch.equal(st["exp_avg"][b], st["exp_avg"][s])
+                    and torch.equal(st["exp_avg_sq"][b], st["exp_avg_sq"][s])
+                    and torch.equal(p[s], old[s])):
+                raise AssertionError(f"mixed round: policy {b}'s moments")
+            if p[b].data_ptr() == p[s].data_ptr():
+                raise AssertionError("mixed round: shared storage")
+        if runner.norm_state is not None and not torch.equal(
+                runner.norm_state.obs.mean[b], runner.norm_state.obs.mean[s]):
+            raise AssertionError("mixed round: normalizer")
+        pairs.append((b, s))
+    print(f"[{card}] mixed round (objectives 0..7): adoptee <- source "
+          f"{pairs}; weights and Adam moments equal bit for bit, each in "
+          "its own slice; coefficients "
+          f"{[runner.coeffs[b] for b, _ in pairs]}")
+
+
+def _mixed_heads_agree(card: str, runner) -> None:
+    """The stacked heads' forward (8 policies over the 4,096 agents of the
+    env batch) on the card against the CPU on the same weights."""
+    import copy
+    import torch
+    from quadswarm_tpu_torch.parallel.pbt_mixed import select_policy
+
+    cpu = copy.copy(runner.heads)
+    cpu.params = {k: v.detach().cpu() for k, v in runner.heads.params.items()}
+    cpu.buffers = {k: v.cpu() for k, v in runner.heads.buffers.items()}
+    obs = runner.obs.reshape(-1, runner.obs.shape[-1])
+    sel = runner.assignment.reshape(-1)
+    with torch.no_grad():
+        got = runner.heads.forward_all(obs)
+        want = cpu.forward_all(obs.cpu())
+    worst = max(_close_to_cpu(f"mixed heads {k}", select_policy(g, sel),
+                              select_policy(w, sel.cpu()))
+                for k, g, w in zip(("mean", "log_std", "value"), got, want))
+    print(f"[{card}] mixed stacked heads (8 policies x {obs.shape[0]:,} "
+          f"rows) on the card against the CPU: largest difference {worst:.3g}"
+          f" of the largest entry (rtol {CARD_RTOL} + {CARD_TOP} of it)")
+
+
+def phase_mixed(card: str, train_dir: str) -> tuple:
+    """runs/pbt_quads_multi_obstacles' flags plus
+    --pbt_mix_policies_in_one_env=True at full width (8 policies sharing
+    512 envs x 8 x 128): MIXED_ITERS iterations (split, agent-steps/s, K1
+    128 an iteration, syncs, peak with 8 stacked policies), a round with
+    injected objectives, the stacked heads on the card against the CPU, K1
+    on the state reached; then the CLI's mixed branch at a small width,
+    which writes 8 checkpoints and pbt_state.json and resumes.  Returns
+    the iterations' launch counts and K1's check."""
+    import shlex
+    import torch
+    from pathlib import Path
+    from quadswarm_tpu_torch.env.params import make_dynamics_params
+    from quadswarm_tpu_torch.parallel.pbt_mixed import MixedPBTRunner
+    from quadswarm_tpu_torch.runs import pbt_quads_multi_obstacles as run
+    from quadswarm_tpu_torch.training import config as C
+
+    t0 = time.perf_counter()
+    (name, cmd), = run.RUN_DESCRIPTION.commands(train_dir)
+    flags = shlex.split(cmd)[3:] + ["--pbt_mix_policies_in_one_env=True"]
+    args = C.parse_swarm_cfg(flags)
+    env_cfg = C.env_config_from_args(args)
+    ppo = C.ppo_config_from_args(args)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runner = MixedPBTRunner(
+        env_cfg, ppo, lambda: C.model_from_args(args, env_cfg, device="cuda"),
+        make_dynamics_params(dt=env_cfg.dt), C.pbt_config_from_args(args),
+        seed=args.seed, exp_dir=str(Path(train_dir) / name),
+        base_rew_coeff=C.base_rew_coeff_from_args(args), device="cuda")
+    e, n, t = ppo.num_envs, env_cfg.num_agents, ppo.rollout
+    if (runner.num_policies, e, n, t, ppo.batch_size,
+            ppo.replay_sample_prob, env_cfg.obs_dim) != (
+            8, 512, 8, 128, 1024, 0.75, 69):
+        raise AssertionError(f"{name} is not the PBT run's configuration")
+    print(f"[{card}] mixed: {name} + --pbt_mix_policies_in_one_env=True, 8 "
+          f"stacked policies, {torch.cuda.memory_allocated() / 2**20:,.0f} "
+          "MiB allocated after construction")
+    total = _counts()
+    for it in range(MIXED_ITERS):
+        _reset_counts()
+        t1 = time.perf_counter()
+        with SyncCounter() as syncs:
+            metrics, _ = runner.iteration()
+        wall = time.perf_counter() - t1
+        counts = _read_counts()
+        for kid in total:
+            total[kid] += counts[kid]
+        if counts != _counts(K1=t):
+            raise AssertionError(f"mixed iteration {it}: launches {counts}")
+        losses = metrics["loss"].tolist()
+        if len(losses) != 8 or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"mixed iteration {it}: losses {losses}")
+        # one a tick (the episode ends) and one an iteration (the
+        # objectives read for the PBT window)
+        if syncs.implicit != t + 1:
+            raise AssertionError(f"mixed iteration {it}: {syncs.implicit} "
+                                 f"syncs, at {syncs.where}")
+        sec = runner.seconds
+        steps = e * n * t // ppo.batch_size
+        print(f"[{card}] mixed iteration {it} (8 policies, {e}x{n} x {t}, "
+              f"batch {ppo.batch_size}, replay {ppo.replay_sample_prob}): "
+              f"{wall:.3f} s = rollout {sec['rollout']:.3f} s + learner "
+              f"{sec['learner']:.3f} s ({sec['learner'] / steps * 1e3:.3f} ms "
+              f"per stacked minibatch step of 8 policies); "
+              f"{e * n * t / wall:,.0f} training agent-steps/s; losses "
+              f"{[round(x, 4) for x in losses]}; K1 launches {counts['K1']}; "
+              f"{syncs.implicit} device-to-host syncs ("
+              f"{syncs.implicit / t:.3f} per tick); peak allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**20:,.0f} MiB with 8 "
+              "stacked policies")
+    _mixed_round(card, runner)
+    _mixed_heads_agree(card, runner)
+    check = check_on_env_state(card, "mixed state", runner.env_states,
+                               env_cfg, runner.dyn_params)
+    del runner
+    _free()
+
+    small = ["--num_envs=32", "--rollout=16", "--log_every_iters=1",
+             f"--train_dir={train_dir}", "--experiment=mixed"]
+    step = 32 * 8 * 16
+    outs = [_train_cli(flags + small + [f"--train_for_env_steps={k * step}"])
+            for k in (1, 2)]
+    exp = Path(train_dir) / "mixed"
+    cps = {p: sorted(x.name for x in (exp / f"checkpoint_p{p}").iterdir())
+           for p in range(8)}
+    meta = json.loads((exp / "pbt_state.json").read_text())
+    if cps != {p: [f"checkpoint_{k * step:012d}.pt" for k in (1, 2)]
+               for p in range(8)} or meta["env_steps"] != 2 * step or \
+            "resumed mixed PBT" not in outs[1][0]:
+        raise AssertionError(f"mixed CLI: checkpoints {cps}")
+    print(f"[{card}] mixed CLI (the run's flags, 8 policies x 32 envs x 16 "
+          f"ticks): {outs[0][1]:.1f} s, then resumed for a second iteration "
+          f"in {outs[1][1]:.1f} s (processes, start-up included); "
+          f"checkpoint_p0..p7 and pbt_state.json at {meta['env_steps']} env "
+          "steps")
+    print(f"[{card}] mixed phase: {time.perf_counter() - t0:.1f} s")
+    return total, check
+
+
 KERNELS = {
     "K1": ("dynamics", "quadswarm_tpu_torch/csrc/dynamics_kernel.cu",
            "quadswarm_tpu/ops/pallas/dynamics_kernel.py:98"),
@@ -2714,10 +3221,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="build,kernels,agree,rollout,swarm,sim,surface,"
-                            "train,obst,eval,runs,appo,pbt",
+                            "train,obst,eval,runs,appo,pbt,bf16,mixed",
                     help="comma-separated subset of build,kernels,agree,"
                          "rollout,swarm,sim,surface,train,obst,eval,runs,"
-                         "appo,pbt,profile,sweep "
+                         "appo,pbt,bf16,mixed,profile,sweep "
                          "(off by "
                          "default: "
                          "profile, a torch.profiler breakdown of a rollout; "
@@ -2726,12 +3233,15 @@ def main(argv=None) -> int:
                     help="with the profile phase: write its Chrome trace "
                          "to this path")
     ap.add_argument("--profile_path", default="flagship",
-                    choices=("flagship", "swarm", "train", "final"),
+                    choices=("flagship", "swarm", "train", "bf16", "final",
+                             "mixed"),
                     help="with the profile phase: the rollout to profile, "
                          "1024 x 8 (flagship) or 256 x 128 with the pair "
-                         "kernels (swarm); or train.sh's Trainer (train) or "
-                         "the final obstacle run's (final), rollout ticks "
-                         "with replay and minibatch steps")
+                         "kernels (swarm); or train.sh's Trainer (train), "
+                         "with bfloat16 model and env (bf16), or the final "
+                         "obstacle run's (final), rollout ticks with replay "
+                         "and minibatch steps; or the PBT run file's mixed "
+                         "runner (mixed)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -2804,6 +3314,13 @@ def main(argv=None) -> int:
         checks["K1"].append(check)
     if "pbt" in phases:
         launches["pbt-8x512x8"], check = phase_pbt(card, train_dir)
+        checks["K1"].append(check)
+    if "bf16" in phases:
+        bf16_launches, check = phase_bf16(card)
+        launches.update(bf16_launches)
+        checks["K1"].append(check)
+    if "mixed" in phases:
+        launches["mixed-8x512x8"], check = phase_mixed(card, train_dir)
         checks["K1"].append(check)
     workdir.cleanup()
     if "profile" in phases:

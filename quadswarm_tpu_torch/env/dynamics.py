@@ -100,7 +100,12 @@ def ou_noise_step(ou_state: torch.Tensor, thrust_noise_ratio,
         normal = torch.randn(ou_state.shape, generator=gen,
                              dtype=ou_state.dtype, device=ou_state.device)
     sigma = 0.2 * thrust_noise_ratio
-    return ou_state + (theta * (0.0 - ou_state) + sigma * normal)
+    # the noise in at least float32 on a bfloat16 state, cast back to the
+    # state's dtype at the end (the JAX package's promotions against its
+    # float32 params)
+    wide = torch.promote_types(ou_state.dtype, torch.float32)
+    return (ou_state + (theta * (0.0 - ou_state) + sigma * normal.to(wide))
+            ).to(ou_state.dtype)
 
 
 def _floor_interaction(p, cfg: DynamicsConfig, pos, vel, rot, omega,
@@ -306,7 +311,10 @@ def draw_tick_noise(params, state: DroneState, gen: torch.Generator | None,
     from `gen`.  Per-drone params broadcast over the state's agent axis."""
     ou_state = ou_noise_step(state.ou_state,
                              noise_ratio(params, state.ou_state.device,
-                                         state.ou_state.dtype), gen, ou_normal)
+                                         torch.promote_types(
+                                             state.ou_state.dtype,
+                                             torch.float32)),
+                             gen, ou_normal)
     if rand_yaw_theta is None:
         u = torch.rand(state.pos.shape[:-1], generator=gen,
                        dtype=state.pos.dtype, device=state.pos.device)

@@ -56,7 +56,7 @@ from quadswarm_tpu_torch.env.dynamics import (
 from quadswarm_tpu_torch.env.neighbors import neighbor_clip_bounds, neighbor_obs
 from quadswarm_tpu_torch.env.obs import obs_size, self_obs
 from quadswarm_tpu_torch.env.reward import (
-    RewardCoeffs, compute_reward, proximity_penalties,
+    RewardCoeffs, agent_coeff, compute_reward, proximity_penalties,
 )
 from quadswarm_tpu_torch.env.scenarios import (
     MIX_MODES_MULTI, MIX_MODES_OBSTACLES, MIX_MODES_OBSTACLES_SINGLE,
@@ -70,7 +70,7 @@ from quadswarm_tpu_torch.ops.kernels.swarm_interactions import (
 )
 from quadswarm_tpu_torch.ops.rotations import yaw_rot
 from quadswarm_tpu_torch.utils.struct import (
-    Struct, map_fields, require_float32, resolve_device,
+    Struct, map_fields, require_float_dtype, resolve_device,
 )
 
 GRAV = 9.81
@@ -206,7 +206,7 @@ class EnvConfig:
                              f"{MAX_AGENTS}, got {self.num_agents}")
         if self.control_mode not in CONTROL_MODES:
             raise ValueError(f"unknown control mode: {self.control_mode}")
-        require_float32(self.dtype)
+        require_float_dtype(self.dtype)
         check_modes(self.mode_list())
 
 
@@ -222,7 +222,7 @@ class EnvState(Struct):
 
     dyn: DroneState
     scenario: ScenarioState
-    rew_coeff: RewardCoeffs          # (E,) tensors
+    rew_coeff: RewardCoeffs          # (E,) or per agent (E, N) tensors
     tick: torch.Tensor               # (E,) int32
     # (E, N, N) bool; with use_pallas_pairs packed bits, (E, N, 128) int32
     prev_coll_pairs: torch.Tensor
@@ -306,7 +306,7 @@ def _compute_obs(cfg: EnvConfig, dyn: DroneState, goals, gyro_bias, gen,
         parts.append(obst.surround_sdf_obs(dyn.pos[..., :2],
                                            obst_pos[..., :2], active,
                                            size / 2.0))
-    return torch.cat(parts, -1), gyro_bias
+    return torch.cat(parts, -1).to(cfg.dtype), gyro_bias
 
 
 def _episode_values(given, random: bool, lo: float, hi: float, step: float,
@@ -342,9 +342,13 @@ def env_reset(cfg: EnvConfig, params, gen: torch.Generator, num_envs: int,
     e, n, dtype = num_envs, cfg.num_agents, cfg.dtype
     full = lambda v, d=dtype: torch.full((e,), v, dtype=d, device=device)
     rew_coeff = RewardCoeffs() if rew_coeff is None else rew_coeff
-    rew_coeff = map_fields(
-        lambda x: torch.as_tensor(x, dtype=dtype, device=device).expand(e)
-        .clone(), rew_coeff)
+
+    def coeff(x):
+        # a float for every env, or the (E,) / per-agent (E, N) leaves of
+        # a reset that keeps an env's coefficients
+        t = torch.as_tensor(x, dtype=dtype, device=device)
+        return (t.expand(e) if t.dim() == 0 else t).clone()
+    rew_coeff = map_fields(coeff, rew_coeff)
 
     density = _episode_values(obst_density, cfg.obst_density_random,
                               cfg.obst_density_min, cfg.obst_density_max,
@@ -559,18 +563,22 @@ def _step(cfg: EnvConfig, params, states: EnvState, actions, gen,
 
     # 3. Collision rewards.
     rc = states.rew_coeff
-    rew_quadcol = -rc.quadcol_bin[:, None] * unique_ids.to(dtype)
+    rew_quadcol = -agent_coeff(rc.quadcol_bin) * unique_ids.to(dtype)
     if cfg.use_pallas_pairs:
         # K2's sum has unit coefficient, sum(1 - d / falloff); the per-env
         # (annealed) coefficient and dt scale it here.
         rew_proximity = -(cfg.control_dt
-                          * rc.quadcol_bin_smooth_max[:, None] * pen_unit)
+                          * agent_coeff(rc.quadcol_bin_smooth_max)
+                          * pen_unit.to(dtype))
     else:
-        rew_proximity = -proximity_penalties(dist, dist <= falloff, falloff,
-                                             rc.quadcol_bin_smooth_max,
-                                             cfg.control_dt)
+        # in float32 on a bfloat16 env: the JAX package's falloff is a
+        # float32 array, which promotes the penalty
+        wide = torch.promote_types(dtype, torch.float32)
+        rew_proximity = -proximity_penalties(
+            dist.to(wide), dist <= falloff, falloff,
+            rc.quadcol_bin_smooth_max.to(wide), cfg.control_dt)
     rew_obst_raw = -curr_obst.to(dtype)
-    rew_quadcol_obst = rc.quadcol_bin_obst[:, None] * rew_obst_raw
+    rew_quadcol_obst = agent_coeff(rc.quadcol_bin_obst) * rew_obst_raw
     rewards = rewards + rew_quadcol + rew_proximity
     if cfg.use_obstacles:
         rewards = rewards + rew_quadcol_obst

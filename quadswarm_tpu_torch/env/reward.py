@@ -14,8 +14,9 @@ from quadswarm_tpu_torch.utils.struct import Struct
 
 @dataclasses.dataclass
 class RewardCoeffs(Struct):
-    """Reward weights: Python floats, or tensors with a leading env axis
-    inside an EnvState (annealed by the training wrapper)."""
+    """Reward weights: Python floats, or tensors inside an EnvState: (E,)
+    per env (annealed by the training wrapper), or (E, N) per agent (mixed-
+    policy PBT: each agent takes its policy's coefficients)."""
 
     pos: float = 1.0
     effort: float = 0.05
@@ -47,14 +48,15 @@ class RewardInfo(NamedTuple):
 
 def compute_reward(coeffs: RewardCoeffs, pos, goal, action, rot, omega,
                    on_floor, dt: float):
-    """Weighted single-drone reward and its raw components.  Coefficient
-    tensors broadcast against the trailing agent axis of `pos`."""
+    """Weighted single-drone reward and its raw components.  A per-env
+    coefficient (E,) broadcasts over the agent axis of `pos`, a per-agent
+    one (E, N) applies drone by drone."""
     dist = torch.linalg.vector_norm(goal - pos, dim=-1)
     cost_effort = torch.linalg.vector_norm(action, dim=-1)
     cost_orient = torch.where(on_floor, torch.ones_like(dist), -rot[..., 2, 2])
     cost_spin = torch.linalg.vector_norm(omega, dim=-1)
     cost_crash = on_floor.to(pos.dtype)
-    c = {f: _agent_axis(getattr(coeffs, f)) for f in
+    c = {f: agent_coeff(getattr(coeffs, f)) for f in
          ("pos", "effort", "crash", "orient", "spin")}
     reward = -dt * (c["pos"] * dist + c["effort"] * cost_effort
                     + c["crash"] * cost_crash + c["orient"] * cost_orient
@@ -71,16 +73,24 @@ def compute_reward(coeffs: RewardCoeffs, pos, goal, action, rot, omega,
     return reward, info
 
 
-def _agent_axis(x):
-    """A per-env coefficient (E,) broadcast over the agent axis."""
-    return x[..., None] if torch.is_tensor(x) and x.dim() > 0 else x
+def agent_coeff(x):
+    """A coefficient as it broadcasts against (E, N) per-drone terms: a
+    per-env one (E,) as (E, 1); a per-agent one (E, N) or a float as it
+    is."""
+    return x[:, None] if torch.is_tensor(x) and x.dim() == 1 else x
 
 
 def proximity_penalties(dist_matrix, pair_mask, falloff_threshold,
                         max_penalty, dt: float):
     """Smooth proximity penalty summed per drone.  dist_matrix, pair_mask:
-    (..., N, N); max_penalty: scalar or (...,) per env."""
-    max_penalty = _agent_axis(_agent_axis(max_penalty))
+    (..., N, N); max_penalty: scalar, (E,) per env or (E, N) per agent.
+    A per-agent max_penalty broadcasts along the partner axis, as the JAX
+    package's (N,) leaf meets its (N, N) matrix: drone i's penalty sums
+    its partners' coefficients, not its own (ROADMAP.md lists it)."""
+    if torch.is_tensor(max_penalty) and max_penalty.dim() == 1:
+        max_penalty = max_penalty[:, None, None]
+    elif torch.is_tensor(max_penalty) and max_penalty.dim() == 2:
+        max_penalty = max_penalty[:, None, :]
     penalty = (-max_penalty / falloff_threshold) * dist_matrix + max_penalty
     n = dist_matrix.shape[-1]
     eye = torch.eye(n, dtype=torch.bool, device=dist_matrix.device)

@@ -808,7 +808,8 @@ def batched_scenario_step(cfg: ScenarioConfig, sts: ScenarioState,
                                                 sts.increase_formation))
     u = counter_uniform(sts.scen_seed, ticks, dtype)
     speed = torch.where(at_low | at_high, u * 2.0 + 1.0, sts.control_speed)
-    size = sts.formation_size + torch.where(inc, 1.0, -1.0) * 0.001 * speed
+    sign = torch.where(inc, 1.0, -1.0).to(dtype)
+    size = sts.formation_size + sign * 0.001 * speed
     df_goals = sts.goals_base + size[:, None, None] * sts.goals_slope
     goals = _sel(is_df, df_goals, goals)
 

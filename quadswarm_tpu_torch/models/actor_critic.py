@@ -1,8 +1,13 @@
 """Actor-critic with separate actor and critic encoders.
 
 Port of quadswarm_tpu/models/actor_critic.py: diagonal-Gaussian policy with
-a state-independent log std, in float32 (the port turns TF32 off for its
-products; see `set_float32_precision`).
+a state-independent log std.  `dtype` is the compute dtype, float32 or
+bfloat16, with flax's promotions (`models/encoders.py`): the parameters and
+the optimizer state stay float32; the action mean and the value come out
+in the compute dtype, the log std in float32 (a float32 parameter, as in
+flax), and the callers cast them to float32 before any loss, GAE or
+sampling.  In float32 the port turns TF32 off for its products (see
+`set_float32_precision`).
 """
 from __future__ import annotations
 
@@ -11,8 +16,10 @@ import math
 import torch
 from torch import nn
 
-from quadswarm_tpu_torch.models.encoders import _dense, make_encoder
-from quadswarm_tpu_torch.utils.struct import require_float32, resolve_device
+from quadswarm_tpu_torch.models.encoders import (
+    _dense, make_encoder, set_compute_dtype,
+)
+from quadswarm_tpu_torch.utils.struct import require_float_dtype, resolve_device
 
 
 def set_float32_precision() -> None:
@@ -37,7 +44,7 @@ class ActorCritic(nn.Module):
                  initial_stddev: float = 1.0, dtype=torch.float32,
                  device="cuda"):
         super().__init__()
-        require_float32(dtype)
+        require_float_dtype(dtype)
         device = resolve_device(device)
         set_float32_precision()
         enc = dict(self_obs_dim=self_obs_dim,
@@ -56,14 +63,18 @@ class ActorCritic(nn.Module):
         self.value_head = _dense(self.critic_encoder.out_size, 1)
         self.log_std = nn.Parameter(
             torch.full((action_dim,), math.log(initial_stddev)))
+        self.dtype = dtype
+        set_compute_dtype(self, dtype)
         self.to(device)
 
     def forward(self, obs):
         mean = self.action_head(self.actor_encoder(obs))
         value = self.value_head(self.critic_encoder(obs))[..., 0]
-        # a new tensor, not a view of the parameter, so that it carries no
-        # grad under torch.no_grad() and sums its gradient when it does
-        return mean, torch.zeros_like(mean) + self.log_std, value
+        # a new float32 tensor, not a view of the parameter, so that it
+        # carries no grad under torch.no_grad() and sums its gradient when
+        # it does
+        return (mean, torch.zeros_like(mean, dtype=self.log_std.dtype)
+                + self.log_std, value)
 
 
 def apply_fused(model: ActorCritic, obs):

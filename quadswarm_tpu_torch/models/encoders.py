@@ -8,9 +8,23 @@ observation layout is [self | k * (rel_pos, rel_vel) | SDF].  Submodule
 names follow the flax modules' where flax names them; `utils/convert.py`
 renames the ones flax numbers (`Dense_i` -> `layers.i`, `MLP_0` -> `mlp`,
 `LayerNorm_0` -> `layer_norm`).
+
+Compute dtype.  The parameters are float32 always; a model built with
+`dtype=torch.bfloat16` computes in bfloat16 with flax's promotions
+(`nn.Dense(dtype=...)`, `nn.LayerNorm(dtype=...)`): a dense layer casts its
+input, weight and bias to the compute dtype and returns it; LayerNorm
+computes its statistics and its affine map in float32 (flax promotes its
+reductions to float32) and returns the compute dtype; attention scores
+are scaled by 1/sqrt(d) rounded to the compute dtype.  The casts are
+explicit (`Dense`, `LayerNorm` below, set by `set_compute_dtype`) rather
+than `torch.autocast`, because autocast runs LayerNorm and softmax in
+float32 and returns float32 from them, where flax returns the compute
+dtype.  A float32 model on float32 inputs runs the plain layers, with no
+cast to dispatch.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -20,20 +34,55 @@ _ACTS = {"tanh": torch.tanh, "relu": torch.relu,
          "elu": nn.functional.elu}
 
 
-def _dense(in_dim: int, out_dim: int, bias: bool = True) -> nn.Linear:
+class Dense(nn.Linear):
+    """flax `nn.Dense(dtype=compute_dtype)`: the input, the weight and the
+    bias are cast to the compute dtype, which the output keeps."""
+
+    compute_dtype = torch.float32
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        if x.dtype == dt == self.weight.dtype:
+            return super().forward(x)     # no cast to dispatch
+        return nn.functional.linear(
+            x.to(dt), self.weight.to(dt),
+            None if self.bias is None else self.bias.to(dt))
+
+
+class LayerNorm(nn.LayerNorm):
+    """flax `nn.LayerNorm(dtype=compute_dtype)`: statistics, scale and
+    bias in float32, the result in the compute dtype."""
+
+    compute_dtype = torch.float32
+
+    def forward(self, x):
+        if x.dtype == self.compute_dtype == torch.float32:
+            return super().forward(x)
+        return super().forward(x.float()).to(self.compute_dtype)
+
+
+def set_compute_dtype(module: nn.Module, dtype) -> None:
+    """Every dense layer, LayerNorm and attention block of `module`
+    computes in `dtype` from now on; its parameters keep theirs."""
+    for m in module.modules():
+        if isinstance(m, (Dense, LayerNorm, MultiHeadAttention)):
+            m.compute_dtype = dtype
+
+
+def _dense(in_dim: int, out_dim: int, bias: bool = True) -> Dense:
     """flax Dense with xavier_uniform kernel and zero bias."""
-    layer = nn.Linear(in_dim, out_dim, bias=bias)
+    layer = Dense(in_dim, out_dim, bias=bias)
     nn.init.xavier_uniform_(layer.weight)
     if bias:
         nn.init.zeros_(layer.bias)
     return layer
 
 
-def _lecun_dense(in_dim: int, out_dim: int) -> nn.Linear:
+def _lecun_dense(in_dim: int, out_dim: int) -> Dense:
     """flax Dense without bias and with its default kernel init,
     lecun_normal (a normal truncated at two deviations, rescaled to
     variance 1 / fan_in)."""
-    layer = nn.Linear(in_dim, out_dim, bias=False)
+    layer = Dense(in_dim, out_dim, bias=False)
     std = math.sqrt(1.0 / in_dim) / 0.87962566103423978
     nn.init.trunc_normal_(layer.weight, std=std, a=-2 * std, b=2 * std)
     return layer
@@ -57,6 +106,12 @@ class MLP(nn.Module):
         return x
 
 
+@functools.lru_cache(maxsize=None)
+def _rounded_sqrt(d: int, dtype) -> float:
+    """sqrt(d) cast to `dtype`, as flax scales attention scores."""
+    return float(torch.tensor(math.sqrt(d)).to(dtype))
+
+
 class MultiHeadAttention(nn.Module):
     """Transformer attention block with residual and LayerNorm: every head
     is d_model wide (d_k = d_model), the projections have no bias, the
@@ -66,6 +121,8 @@ class MultiHeadAttention(nn.Module):
     package's OneHeadAttention (the sim2real block): the same parameters
     and the same products.  Returns (out, attention)."""
 
+    compute_dtype = torch.float32
+
     def __init__(self, n_head: int, d_model: int):
         super().__init__()
         self.n_head, self.d_model = n_head, d_model
@@ -73,7 +130,7 @@ class MultiHeadAttention(nn.Module):
         self.w_ks = _lecun_dense(d_model, n_head * d_model)
         self.w_vs = _lecun_dense(d_model, n_head * d_model)
         self.fc = _lecun_dense(n_head * d_model, d_model)
-        self.layer_norm = nn.LayerNorm(d_model, eps=1e-6)
+        self.layer_norm = LayerNorm(d_model, eps=1e-6)
 
     def forward(self, q, k, v):
         h, d = self.n_head, self.d_model
@@ -81,7 +138,9 @@ class MultiHeadAttention(nn.Module):
         qh = self.w_qs(q).reshape(b, lq, h, d).transpose(1, 2)
         kh = self.w_ks(k).reshape(b, k.shape[1], h, d).transpose(1, 2)
         vh = self.w_vs(v).reshape(b, v.shape[1], h, d).transpose(1, 2)
-        attn = torch.softmax((qh / math.sqrt(d)) @ kh.transpose(-1, -2), -1)
+        attn = torch.softmax(
+            (qh / _rounded_sqrt(d, self.compute_dtype))
+            @ kh.transpose(-1, -2), -1)
         out = (attn @ vh).transpose(1, 2).reshape(b, lq, h * d)
         return self.layer_norm(self.fc(out) + q), attn
 

@@ -32,7 +32,11 @@ on the params object.
 
 `dynamics_tick_fused` takes a CPU state to the plain version
 (`dynamics_tick_flat`) and a CUDA state to the kernel; there is no
-fallback from one to the other.  The kernel has no rotor drag, as the TPU
+fallback from one to the other.  Both compute in float32: a state of
+another float dtype (bfloat16, the env's `--dtype=bfloat16`) is cast into
+float32 at the boundary and the outputs back into the state's dtype, as
+the Pallas wrapper reads its planes as float32 and casts its outputs
+back; csrc/dynamics_kernel.cu itself is float32 only.  The kernel has no rotor drag, as the TPU
 kernel has none, and refuses a config that asks for it.
 """
 from __future__ import annotations
@@ -205,11 +209,35 @@ def _param_table_on(params, cfg: DynamicsConfig, device) -> torch.Tensor:
     return cache[key]
 
 
+# The state's fields K1 reads as floats.
+_FLOAT_IN_FIELDS = _IN_FIELDS[:6]
+
+
+def _float32_inputs(state: DroneState, thrust_cmds, ou_state,
+                    rand_yaw_theta) -> tuple:
+    """K1's inputs cast to float32 (the Pallas wrapper's `f32` planes)."""
+    return (state.replace(**{f: getattr(state, f).float()
+                             for f in _FLOAT_IN_FIELDS}),
+            thrust_cmds.float(), ou_state.float(), rand_yaw_theta.float())
+
+
+def _in_dtype(out: DroneState, dtype, ou_state) -> DroneState:
+    """K1's float32 outputs cast back to the state's dtype, carrying the
+    tick's OU state as it came."""
+    return map_fields(lambda x: x.to(dtype) if x.is_floating_point() else x,
+                      out).replace(ou_state=ou_state)
+
+
 def dynamics_tick_flat(params, cfg: DynamicsConfig, state: DroneState,
                        thrust_cmds, ou_state, rand_yaw_theta) -> DroneState:
     """The plain version of one kernel call on a flat batch: per-drone
     params of N rows fly drone b with row b % N (the batch seen as
-    (B / N, N)); shared params as they are."""
+    (B / N, N)); shared params as they are.  In float32 whatever the
+    state's float dtype, as the kernel."""
+    if state.pos.dtype != torch.float32:
+        out = dynamics_tick_flat(params, cfg, *_float32_inputs(
+            state, thrust_cmds, ou_state, rand_yaw_theta))
+        return _in_dtype(out, state.pos.dtype, ou_state)
     if not params.per_drone:
         return dynamics_tick(params, cfg, state, thrust_cmds, ou_state,
                              rand_yaw_theta)
@@ -260,6 +288,10 @@ def dynamics_tick_fused(params, cfg: DynamicsConfig, state: DroneState,
             "rotor drag is not in the dynamics kernel: the TPU kernel it "
             "ports has none; the plain dynamics (env/dynamics.py) has it")
     device = state.pos.device
+    if state.pos.dtype != torch.float32:
+        out = dynamics_tick_fused(params, cfg, *_float32_inputs(
+            state, thrust_cmds, ou_state, rand_yaw_theta))
+        return _in_dtype(out, state.pos.dtype, ou_state)
     if device.type == "cpu":
         return dynamics_tick_flat(params, cfg, state, thrust_cmds, ou_state,
                                   rand_yaw_theta)

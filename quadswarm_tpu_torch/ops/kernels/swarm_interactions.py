@@ -327,11 +327,18 @@ def pair_outputs(e: int, n: int, device) -> tuple:
             new(torch.int32), new(torch.int32, PACK_LANES))
 
 
+def _float32_env(x: torch.Tensor) -> torch.Tensor:
+    """A bfloat16 env's positions or velocities in float32, as the JAX
+    wrappers cast them; any other dtype is left for the checks to judge."""
+    return x.float() if x.dtype == torch.bfloat16 else x
+
+
 def pair_collisions(pos: torch.Tensor, prev_packed: torch.Tensor, hitbox,
                     falloff, max_penalty):
     """Collision stage for large swarms, O(N) memory (K2).
 
-    pos (E, N, 3) float32; prev_packed (E, N, PACK_LANES) int32, the pair
+    pos (E, N, 3) float32 (a bfloat16 env's is cast to it, as the JAX
+    wrapper casts); prev_packed (E, N, PACK_LANES) int32, the pair
     bits of the previous tick (zeros after a reset); hitbox, falloff,
     max_penalty host scalars.  Returns
       col_any (E, N) bool: within hitbox of anyone;
@@ -345,6 +352,7 @@ def pair_collisions(pos: torch.Tensor, prev_packed: torch.Tensor, hitbox,
         tensor (prev_packed is only read)."""
     e, n = _fleet_shape("pos", pos)
     device = pos.device
+    pos = _float32_env(pos)
     build.check_tensor("pos", pos, (e, n, 3), torch.float32, device)
     build.check_tensor("prev_packed", prev_packed, (e, n, PACK_LANES),
                        torch.int32, device)
@@ -390,6 +398,7 @@ def neighbor_topk_obs(pos: torch.Tensor, vel: torch.Tensor,
     if k > n - 1:
         raise ValueError(f"k = {k} neighbours of N = {n} drones")
     device = pos.device
+    pos, vel = _float32_env(pos), _float32_env(vel)
     build.check_tensor("pos", pos, (e, n, 3), torch.float32, device)
     build.check_tensor("vel", vel, (e, n, 3), torch.float32, device)
     if device.type == "cpu":
@@ -411,6 +420,7 @@ def swarm_interactions(pos: torch.Tensor, hitbox, falloff, max_penalty):
             pos[None], hitbox, falloff, max_penalty))
     e, n = _fleet_shape("pos", pos)
     device = pos.device
+    pos = _float32_env(pos)
     build.check_tensor("pos", pos, (e, n, 3), torch.float32, device)
     if device.type == "cpu":
         return swarm_interactions_plain(pos, hitbox, falloff, max_penalty)

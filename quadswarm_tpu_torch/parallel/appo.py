@@ -33,15 +33,11 @@ from collections import deque
 
 import torch
 
-from quadswarm_tpu_torch.models.actor_critic import (
-    apply_fused, gaussian_log_prob,
-)
-from quadswarm_tpu_torch.parallel.normalize import (
-    NormalizerState, denormalize_value, normalize_obs,
-)
+from quadswarm_tpu_torch.models.actor_critic import gaussian_log_prob
+from quadswarm_tpu_torch.parallel.normalize import NormalizerState
 from quadswarm_tpu_torch.parallel.ppo import (
     PPOConfig, Trainer, Transition, _sync, collect_rollout, compute_gae,
-    minibatch_layout, sgd_epochs,
+    minibatch_layout, policy_heads, sgd_epochs,
 )
 
 
@@ -79,9 +75,8 @@ def learner_targets(model, ppo_cfg: PPOConfig, traj: Transition, last_obs,
     e_dim, n_dim = traj.reward.shape[1:]
 
     def forward(obs):
-        mean, log_std, value = apply_fused(
-            model, normalize_obs(norm_state, obs.reshape(e_dim * n_dim, -1)))
-        return mean, log_std, denormalize_value(norm_state, value)
+        return policy_heads(model, obs.reshape(e_dim * n_dim, -1),
+                            norm_state)
 
     values = torch.empty_like(traj.value)
     target_log_prob = (torch.empty_like(traj.log_prob) if ppo_cfg.with_vtrace

@@ -91,6 +91,17 @@ class Transition(NamedTuple):
     done: torch.Tensor       # (T, E, N) bool
 
 
+def policy_heads(model: ActorCritic, obs_flat,
+                 norm: NormalizerState | None = None):
+    """(mean, log_std, value) of a (B, obs_dim) batch in float32, whatever
+    the model's compute dtype, so that sampling, log-probs, GAE and V-trace
+    stay float32 (the JAX package's casts); the value denormalized into
+    reward space when the returns are normalized."""
+    mean, log_std, value = apply_fused(model, normalize_obs(norm, obs_flat))
+    return (mean.float(), log_std.float(),
+            denormalize_value(norm, value.float()))
+
+
 @torch.no_grad()
 def collect_rollout(env_cfg: EnvConfig, dyn_params, model: ActorCritic,
                     ppo_cfg: PPOConfig, env_states: EnvState,
@@ -110,14 +121,10 @@ def collect_rollout(env_cfg: EnvConfig, dyn_params, model: ActorCritic,
         lambda x: torch.full((e,), float(x), dtype=env_cfg.dtype, device=dev),
         rew_coeff))
 
-    def policy(obs_e):
-        mean, log_std, value = apply_fused(
-            model, normalize_obs(norm, obs_e.reshape(e * n, -1)))
-        return mean, log_std, denormalize_value(norm, value)
-
     steps, infos = [], []
     for _ in range(ppo_cfg.rollout):
-        mean, log_std, value = policy(obs)
+        mean, log_std, value = policy_heads(model, obs.reshape(e * n, -1),
+                                            norm)
         actions = sample_actions(gen, mean, log_std)
         log_prob = gaussian_log_prob(mean, log_std, actions)
         actions_e = actions.reshape(e, n, -1)
@@ -137,7 +144,7 @@ def collect_rollout(env_cfg: EnvConfig, dyn_params, model: ActorCritic,
             done=dones))
         infos.append(info)
         obs = next_obs
-    _, _, last_value = policy(obs)
+    _, _, last_value = policy_heads(model, obs.reshape(e * n, -1), norm)
     traj = Transition(*(torch.stack(x) for x in zip(*steps)))
     info = {k: torch.stack([i[k] for i in infos]) for k in infos[0]}
     return env_states, obs, replay_states, traj, last_value.reshape(e, n), info
@@ -165,6 +172,8 @@ def ppo_loss(model: ActorCritic, ppo_cfg: PPOConfig, batch,
     with the population std.  Metrics are detached scalar tensors."""
     obs, actions, old_log_prob, old_value, advantages, returns = batch
     mean, log_std, value = apply_fused(model, normalize_obs(norm, obs))
+    # the loss in float32 whatever the model's compute dtype
+    mean, log_std, value = mean.float(), log_std.float(), value.float()
     if norm is not None and norm.ret is not None:
         # The critic learns normalized returns: move the targets and the
         # clip anchor into that space.

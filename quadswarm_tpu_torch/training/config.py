@@ -179,10 +179,17 @@ def add_training_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--wandb_project", default="quadswarm-tpu", type=str)
     p.add_argument("--wandb_user", default=None, type=str)
     p.add_argument("--wandb_group", default=None, type=str)
-    p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"])
+    p.add_argument("--dtype", default="float32",
+                   choices=["float32", "bfloat16"],
+                   help="the env state's dtype; the dynamics kernel reads "
+                        "it as float32 and writes it back in this dtype, "
+                        "the scenario's event table stays float32")
     p.add_argument("--model_dtype", default="auto",
                    choices=["auto", "float32", "bfloat16"],
-                   help="model compute dtype; auto is float32 in the port")
+                   help="model COMPUTE dtype (params and optimizer stay "
+                        "float32; loss, GAE and V-trace math is float32). "
+                        "auto = bfloat16 on a TPU, float32 elsewhere (the "
+                        "JAX package's rule), so float32 on a CUDA card")
     # PBT
     p.add_argument("--with_pbt", default=False, type=str2bool)
     p.add_argument("--num_policies", default=1, type=int)
@@ -267,15 +274,10 @@ def _resolve_compat_flags(args) -> argparse.Namespace:
                          "dynamics on CUDA go through the kernel K1 (auto, "
                          "true); --device=cpu runs the plain version")
     refused = (
-        ("--pbt_mix_policies_in_one_env (mixed-policy PBT)",
-         args.with_pbt and args.num_policies > 1
-         and args.pbt_mix_policies_in_one_env, 13),
         # the JAX CLI parses it without a check
         ("--appo_split_devices (APPO's rollout and learner on disjoint "
          "devices)", bool(args.appo_split_devices), 14),
         ("--multi_host", args.multi_host, 14),
-        ("bfloat16 (--dtype, --model_dtype)",
-         "bfloat16" in (args.dtype, args.model_dtype), 8),
     )
     for what, on, item in refused:
         if on:
@@ -323,13 +325,23 @@ def env_config_from_args(args):
         quads_mode=args.quads_mode,
         use_pallas_pairs=args.quads_use_pallas_pairs == "true",
         use_pallas_dynamics=True,
-        dtype=torch.float32,
+        dtype=torch.bfloat16 if args.dtype == "bfloat16" else torch.float32,
     )
+
+
+def model_dtype_from_args(args):
+    """The model's compute dtype: --model_dtype, with auto resolved by the
+    JAX package's rule, bfloat16 only on a TPU backend: the port runs on a
+    CUDA card or the CPU, so auto is float32 here."""
+    import torch
+
+    return (torch.bfloat16 if getattr(args, "model_dtype", "auto")
+            == "bfloat16" else torch.float32)
 
 
 def model_kwargs_from_args(args, env_cfg) -> dict:
     """The ActorCritic's constructor arguments (the JAX package's module
-    fields), dtype aside: the port's model is float32."""
+    fields), dtype aside (`model_dtype_from_args`)."""
     from quadswarm_tpu_torch.env.obs import NEIGHBOR_OBS_SIZES, OBS_REPR_SIZES
 
     return dict(
@@ -359,6 +371,7 @@ def model_from_args(args, env_cfg, device="cuda"):
 
     return ActorCritic(
         **model_kwargs_from_args(args, env_cfg),
+        dtype=model_dtype_from_args(args),
         obstacle_obs_dim=(OBSTACLE_OBS_SIZES["octomap"]
                           if env_cfg.use_obstacles else 0),
         device=device)

@@ -68,7 +68,9 @@ def _mean_stats(info: dict, env: int) -> dict:
 def _host_info(info: dict) -> dict:
     """A done tick's info on the host, without the per-tick reward terms
     and replay stats."""
-    return {k: v.detach().cpu().numpy() for k, v in info.items()
+    from quadswarm_tpu_torch.utils.struct import to_numpy
+
+    return {k: to_numpy(v) for k, v in info.items()
             if not k.startswith("rewards/") and not k.startswith("replay/")}
 
 

@@ -4,9 +4,17 @@ Port of quadswarm_tpu/training/train.py: it takes the flags of `train.sh`,
 `train_local_obst.sh` and the run files (`runs/`) unchanged and trains on
 the CUDA device (`--device=cpu` runs the kernels' plain versions on the
 CPU).  Its branches, tested in the JAX CLI's order:
-- `--with_pbt=True --num_policies>1`: population-based training
-  (`parallel/pbt.py`), one `p{p}/metrics.jsonl` and one `checkpoint_p{p}`
-  a policy; `--async_rl` is then ignored, as in the JAX CLI;
+- `--with_pbt=True --num_policies>1`: population-based training, one
+  `checkpoint_p{p}` a policy; `--async_rl` is then ignored, as in the JAX
+  CLI.  With `--pbt_mix_policies_in_one_env=True` the policies share one
+  env batch (`parallel/pbt_mixed.py`): `metrics.jsonl` logs
+  `policy{p}/loss`, `policy{p}/pbt_objective` and `reward_mean`, a round
+  runs every `--pbt_period_env_steps` from `--pbt_start_mutation` on, the
+  run saves every --save_every_sec seconds and at exit (with
+  `pbt_state.json`) and resumes; it takes no annealing schedule, as in the
+  JAX CLI, and warns when `--anneal_collision_steps` asks for one.  Else
+  the policies train apart (`parallel/pbt.py`), one `p{p}/metrics.jsonl`
+  a policy;
 - `--async_rl=True`: APPO (`parallel/appo.py`) with `--policy_lag` and
   `--with_vtrace`;
 - else synchronous PPO.
@@ -29,6 +37,7 @@ from __future__ import annotations
 import os
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -61,6 +70,9 @@ def main(argv=None) -> int:
     anneal = anneal_schedules_from_args(args)
     base_coeff = base_rew_coeff_from_args(args)
     if args.with_pbt and args.num_policies > 1:
+        if args.pbt_mix_policies_in_one_env:
+            return _train_mixed(args, env_cfg, ppo_cfg, dyn, base_coeff,
+                                exp_dir, device)
         runner = PBTRunner(env_cfg, ppo_cfg,
                            lambda: model_from_args(args, env_cfg,
                                                    device=device),
@@ -160,6 +172,63 @@ def main(argv=None) -> int:
             profiler.stop()
             _export_trace(profiler, args.profile_dir)
         save()
+        logger.close()
+    return 0
+
+
+def _train_mixed(args, env_cfg, ppo_cfg, dyn, base_coeff, exp_dir,
+                 device) -> int:
+    """The mixed-policy PBT branch, in the JAX CLI's order."""
+    from quadswarm_tpu_torch.parallel.pbt_mixed import MixedPBTRunner
+    from quadswarm_tpu_torch.training.config import (
+        model_from_args, pbt_config_from_args,
+    )
+    from quadswarm_tpu_torch.utils.metrics import MetricLogger
+
+    if args.anneal_collision_steps > 0:
+        # the JAX package's MixedPBTRunner takes no schedule either
+        warnings.warn("--anneal_collision_steps is ignored under "
+                      "--pbt_mix_policies_in_one_env=True: the mixed PBT "
+                      "runner takes no annealing schedule (as in the JAX "
+                      "package)")
+    pbt_cfg = pbt_config_from_args(args)
+    runner = MixedPBTRunner(
+        env_cfg, ppo_cfg, lambda: model_from_args(args, env_cfg,
+                                                  device=device),
+        dyn, pbt_cfg, seed=args.seed, exp_dir=exp_dir,
+        base_rew_coeff=base_coeff, device=device)
+    if runner.restore(args.train_dir, args.experiment):
+        print(f"resumed mixed PBT at {runner.env_steps} env steps",
+              flush=True)
+    logger = MetricLogger(exp_dir)
+    it, last_round = 0, 0
+    last_save = time.time()
+    try:
+        while runner.env_steps < args.train_for_env_steps:
+            metrics, _ = runner.iteration()
+            it += 1
+            if it % args.log_every_iters == 0:
+                m = {f"policy{p}/loss": float(v)
+                     for p, v in enumerate(metrics["loss"].tolist())}
+                m["reward_mean"] = float(metrics["reward_mean"])
+                for p, h in enumerate(runner.objective_hist):
+                    if h:
+                        m[f"policy{p}/pbt_objective"] = h[-1]
+                m["perf/rollout_s"] = runner.seconds["rollout"]
+                m["perf/learner_s"] = runner.seconds["learner"]
+                logger.log(runner.env_steps, m)
+                print(f"steps={runner.env_steps:,} "
+                      f"rew={m['reward_mean']:.4f}", flush=True)
+            if (runner.env_steps >= pbt_cfg.start_mutation
+                    and runner.env_steps - last_round
+                    >= pbt_cfg.period_env_steps):
+                last_round = runner.env_steps
+                runner.pbt_round()
+            if time.time() - last_save > args.save_every_sec:
+                runner.save(args.train_dir, args.experiment)
+                last_save = time.time()
+    finally:
+        runner.save(args.train_dir, args.experiment)
         logger.close()
     return 0
 

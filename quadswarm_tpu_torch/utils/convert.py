@@ -63,8 +63,37 @@ def actor_critic_from_flax(tree: dict) -> dict:
     return out
 
 
+def stacked_actor_critic_from_flax(tree: dict) -> dict:
+    """P flax ActorCritic parameter trees stacked on a leading [P] axis
+    (numpy; the JAX package's mixed-PBT `params`) -> the port's stacked
+    weights, name -> (P, ...) tensor, in the layout of
+    `parallel/pbt_mixed.py::StackedPolicies.params`."""
+    tree = tree.get("params", tree)
+    p_count = len(next(iter(_leaf_arrays(tree))))
+    per_policy = [actor_critic_from_flax(_index_tree(tree, p))
+                  for p in range(p_count)]
+    return {k: torch.stack([sd[k] for sd in per_policy])
+            for k in per_policy[0]}
+
+
+def _leaf_arrays(tree: dict):
+    for val in tree.values():
+        if isinstance(val, dict):
+            yield from _leaf_arrays(val)
+        else:
+            yield np.asarray(val)
+
+
+def _index_tree(tree: dict, p: int) -> dict:
+    return {k: _index_tree(v, p) if isinstance(v, dict) else np.asarray(v)[p]
+            for k, v in tree.items()}
+
+
 def _tensor(arr, device) -> torch.Tensor:
     arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":    # JAX's bfloat16 (ml_dtypes), exact
+        return torch.from_numpy(arr.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
     if arr.dtype == np.float64:
         arr = arr.astype(np.float32)
     elif arr.dtype in (np.int64, np.uint32):

@@ -11,9 +11,11 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from quadswarm_tpu_torch.utils.struct import to_numpy
+
 
 def _host(x) -> np.ndarray:
-    return x.detach().cpu().numpy()
+    return to_numpy(x)
 
 
 @dataclass

@@ -39,6 +39,13 @@ def leaves(obj, prefix: str = ""):
         yield prefix[:-1], obj
 
 
+def to_numpy(t: torch.Tensor):
+    """A tensor on the host as numpy; bfloat16, which numpy lacks, as
+    float32 (exactly)."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
 def resolve_device(device="cuda") -> torch.device:
     """The device an entry point runs on.  CUDA is the default; without a
     card that raises, and the caller must ask for the CPU explicitly."""
@@ -50,7 +57,13 @@ def resolve_device(device="cuda") -> torch.device:
     return device
 
 
-def require_float32(dtype) -> None:
-    if dtype != torch.float32:
+FLOAT_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def require_float_dtype(dtype) -> None:
+    """The port computes in float32 or bfloat16, as the JAX package does;
+    any other dtype raises."""
+    if dtype not in FLOAT_DTYPES:
         raise NotImplementedError(
-            f"dtype {dtype} is not supported yet; the port runs float32 only")
+            f"dtype {dtype} is not supported; the port runs float32 and "
+            "bfloat16")

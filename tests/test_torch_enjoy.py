@@ -33,7 +33,7 @@ from quadswarm_tpu_torch.training import config as t_config
 from quadswarm_tpu_torch.training import enjoy, train
 from quadswarm_tpu_torch.utils import checkpoint as t_ckpt
 
-from .test_torch_obstacle_env import _jax_state
+from .test_torch_env_parts import _jax_state
 
 ROOT = Path(__file__).resolve().parents[1]
 EVAL_FLAGS = ("load_checkpoint_kind", "max_num_episodes", "eval_envs",

@@ -25,10 +25,13 @@ from flax import serialization, traverse_util
 from quadswarm_tpu.env import collisions as j_coll
 from quadswarm_tpu.env import controls as j_controls
 from quadswarm_tpu.env import downwash as j_downwash
+from quadswarm_tpu.env import dynamics as j_dyn
+from quadswarm_tpu.env import multi as j_multi
 from quadswarm_tpu.env import neighbors as j_neighbors
 from quadswarm_tpu.env import obs as j_obs
 from quadswarm_tpu.env import params as j_params
 from quadswarm_tpu.env import reward as j_reward
+from quadswarm_tpu.env import scenarios as j_scen
 from quadswarm_tpu.env import sensor as j_sensor
 from quadswarm_tpu.ops import rotations as j_rot
 from quadswarm_tpu_torch.env import collisions as t_coll
@@ -121,6 +124,35 @@ def assert_matches_jax(port_obj, jax_obj, skip=(), tol=None,
         else:
             t = (field_tol or {}).get(name.split(".")[-1], tol)
             np.testing.assert_allclose(got, want, err_msg=name, **t)
+
+
+def _jax_array(t: torch.Tensor):
+    """A port tensor as a JAX array of its dtype (bfloat16 through numpy's
+    float32, exactly)."""
+    if t.dtype == torch.bfloat16:
+        return jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+    return jnp.asarray(t.numpy())
+
+
+def _jax_state(tstate):
+    """A port EnvState as the JAX package's, its scenario key zero: the
+    lockstep tests start from a port reset carried over (a JAX reset
+    compiles for half a minute) and play few enough ticks that no
+    scenario draws after reset."""
+    def build(cls, obj):
+        kwargs = {}
+        for f in dataclasses.fields(cls):
+            if f.name == "scen_key":
+                kwargs[f.name] = jnp.zeros(obj.scen_seed.shape + (2,),
+                                           jnp.uint32)
+                continue
+            val = getattr(obj, f.name)
+            sub = {"dyn": j_dyn.DroneState, "scenario": j_scen.ScenarioState,
+                   "rew_coeff": j_reward.RewardCoeffs}.get(f.name)
+            kwargs[f.name] = (build(sub, val) if sub is not None
+                              else _jax_array(val))
+        return cls(**kwargs)
+    return build(j_multi.EnvState, tstate)
 
 
 def t64(x):

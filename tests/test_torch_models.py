@@ -84,11 +84,17 @@ def test_log_prob_entropy_and_sampling_match_jax():
 
 
 def test_unported_variants_raise():
-    """bfloat16 is not ported; the 'attention' encoder type without an
-    observation after the neighbour slice is refused (the JAX package fails
-    on it at init)."""
+    """The 'attention' encoder type without an observation after the
+    neighbour slice is refused (the JAX package fails on it at init); a
+    bfloat16 model builds with float32 parameters and computes in bfloat16,
+    and a float16 one is refused."""
     with pytest.raises(ValueError, match="ZeroDivisionError"):
         t_ac.ActorCritic(**{**KW, "encoder_type": "attention"},
                          obstacle_obs_dim=0, device="cpu")
+    model = t_ac.ActorCritic(**KW, dtype=torch.bfloat16, device="cpu")
+    assert {p.dtype for p in model.parameters()} == {torch.float32}
+    mean, log_std, value = model(torch.zeros((2, 54)))
+    assert (mean.dtype, log_std.dtype, value.dtype) == (
+        torch.bfloat16, torch.float32, torch.bfloat16)
     with pytest.raises(NotImplementedError):
-        t_ac.ActorCritic(**KW, dtype=torch.bfloat16, device="cpu")
+        t_ac.ActorCritic(**KW, dtype=torch.float16, device="cpu")

@@ -52,7 +52,7 @@ from quadswarm_tpu_torch.models import actor_critic as t_ac
 from quadswarm_tpu_torch.training import config as t_config
 from quadswarm_tpu_torch.utils.convert import actor_critic_from_flax
 
-from .test_torch_env_parts import assert_matches_jax
+from .test_torch_env_parts import _jax_state, assert_matches_jax
 from .test_torch_replay import _tape
 from .test_torch_slice import SENSOR_ORDER, _torch
 
@@ -73,25 +73,6 @@ MODEL_KW = dict(action_dim=4, self_obs_dim=19, neighbor_obs_dim=6,
                 rnn_size=32)
 TOL = dict(rtol=2e-4, atol=2e-5)
 FIELD_TOL = {"omega_dot": dict(rtol=2e-4, atol=1e-3)}
-
-
-def _jax_state(tstate):
-    """A port EnvState as the JAX package's (its scenario key zero: the
-    obstacle mix's modes draw nothing after reset)."""
-    def build(cls, obj):
-        kwargs = {}
-        for f in dataclasses.fields(cls):
-            if f.name == "scen_key":
-                kwargs[f.name] = jnp.zeros(obj.scen_seed.shape + (2,),
-                                           jnp.uint32)
-                continue
-            val = getattr(obj, f.name)
-            sub = {"dyn": j_dyn.DroneState, "scenario": j_scen.ScenarioState,
-                   "rew_coeff": JRewardCoeffs}.get(f.name)
-            kwargs[f.name] = (build(sub, val) if sub is not None
-                              else jnp.asarray(val.numpy()))
-        return cls(**kwargs)
-    return build(j_multi.EnvState, tstate)
 
 
 @pytest.fixture(scope="module")

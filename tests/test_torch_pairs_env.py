@@ -7,9 +7,9 @@ on CPU tensors both take their plain versions.
 
   (a) the port's pairs route against the port's dense route in lockstep,
       under the same generator;
-  (b) the port's pairs route against the JAX package's, from a converted
-      JAX state with every draw injected (the JAX kernels in interpret
-      mode), rtol 2e-4 / atol 2e-5 per tick;
+  (b) the port's pairs route against the JAX package's, from a port reset
+      carried over to the JAX package's EnvState, with every draw injected
+      (the JAX kernels in interpret mode), rtol 2e-4 / atol 2e-5 per tick;
   (c) a forced collision: the response fires on the first tick and not on
       the repeat;
   (d) the auto-reset zeroes the packed history of the finished env only;
@@ -25,7 +25,6 @@ import torch
 
 from quadswarm_tpu.env import multi as j_multi
 from quadswarm_tpu.env.params import make_dynamics_params as j_make_params
-from quadswarm_tpu.env.reward import RewardCoeffs as JRewardCoeffs
 from quadswarm_tpu_torch.env import multi as t_multi
 from quadswarm_tpu_torch.env.params import make_dynamics_params as t_make_params
 from quadswarm_tpu_torch.env.reward import RewardCoeffs
@@ -33,7 +32,9 @@ from quadswarm_tpu_torch.ops.kernels import swarm_interactions as t_si
 from quadswarm_tpu_torch.utils.convert import env_state_from_numpy
 from quadswarm_tpu_torch.utils.struct import leaves
 
-from .test_torch_env_parts import assert_matches_jax, jax_tree_numpy
+from .test_torch_env_parts import (
+    _jax_state, assert_matches_jax, jax_tree_numpy,
+)
 from .test_torch_slice import _draws, _jax_step, _torch
 
 E, N, K = 2, 8, 2
@@ -267,17 +268,18 @@ def test_every_mix_mode_runs_at_128_drones(mode):
 
 @pytest.fixture(scope="module")
 def jax_start():
-    """A JAX-reset pair of envs on the pairs route, with colliding drones."""
+    """A port reset of a pair of envs on the pairs route, with colliding
+    drones, carried over to the JAX package's EnvState (a JAX reset would
+    compile for half a minute)."""
     jcfg = j_multi.EnvConfig(**ENV_KW, use_pallas_pairs=True)
-    jparams = j_make_params()
-    keys = jax.random.split(jax.random.PRNGKey(21), E)
-    jstate, jobs = jax.jit(jax.vmap(lambda k: j_multi.env_reset(
-        jcfg, jparams, k, rew_coeff=JRewardCoeffs(**REWARD))))(keys)
-    pos, vel = _collide(torch.from_numpy(np.array(jstate.dyn.pos)),
-                        torch.from_numpy(np.array(jstate.dyn.vel)))
-    jstate = jstate.replace(dyn=jstate.dyn.replace(
-        pos=jnp.asarray(pos.numpy()), vel=jnp.asarray(vel.numpy())))
-    return jcfg, jparams, jstate
+    tcfg = t_multi.EnvConfig(**ENV_KW, use_pallas_pairs=True)
+    tstate, _ = t_multi.env_reset(tcfg, t_make_params(dt=tcfg.dt),
+                                  torch.Generator().manual_seed(21), E,
+                                  device="cpu",
+                                  rew_coeff=RewardCoeffs(**REWARD))
+    pos, vel = _collide(tstate.dyn.pos, tstate.dyn.vel)
+    tstate = tstate.replace(dyn=tstate.dyn.replace(pos=pos, vel=vel))
+    return jcfg, j_make_params(), _jax_state(tstate)
 
 
 def test_converted_jax_state_carries_the_packed_history(jax_start):

@@ -2,7 +2,8 @@
 
 Against the JAX package: `batched_replay_step` and JAX's `replay_step`
 (each env, vmapped and jitted once) run in lockstep for 10 ticks from one
-converted mid-episode state of 4 envs x 4 drones, every random draw
+mid-episode state of 4 envs x 4 drones (a port reset carried over to the
+JAX package's EnvState), every random draw
 injected into both.  The state is prepared so that on the first tick env 0
 saves a checkpoint, env 1 saves one and writes the buffer (a new drone
 collision), env 2 ends its episode and replays a buffered state, and env 3
@@ -35,7 +36,6 @@ from quadswarm_tpu.env import scenarios as j_scen
 from quadswarm_tpu.env import sensor as j_sensor
 from quadswarm_tpu.env.controls import raw_control
 from quadswarm_tpu.env.params import make_dynamics_params as j_make_params
-from quadswarm_tpu.env.reward import RewardCoeffs as JRewardCoeffs
 from quadswarm_tpu_torch.env import multi as t_multi
 from quadswarm_tpu_torch.env import replay as t_replay
 from quadswarm_tpu_torch.env.params import make_dynamics_params as t_make_params
@@ -45,7 +45,9 @@ from quadswarm_tpu_torch.utils.convert import (
 )
 from quadswarm_tpu_torch.utils.struct import leaves, map_fields
 
-from .test_torch_env_parts import _JaxShim, assert_matches_jax, jax_tree_numpy
+from .test_torch_env_parts import (
+    _JaxShim, _jax_state, assert_matches_jax, jax_tree_numpy,
+)
 
 E, N = 4, 4
 ENV_KW = dict(num_agents=N, quads_mode="mix", neighbor_obs_type="pos_vel",
@@ -182,26 +184,26 @@ def _jax_tick_fn(jcfg, jparams):
     return tick
 
 
-def _set(x, idx, value):
-    return x.at[idx].set(jnp.asarray(value, x.dtype))
-
-
 @pytest.fixture(scope="module")
 def start():
-    """4 envs mid-episode, each set up for one branch of the replay tick."""
+    """4 envs mid-episode, each set up for one branch of the replay tick: a
+    port reset carried over to the JAX package's EnvState (a JAX reset
+    would compile for half a minute)."""
     jcfg = j_multi.EnvConfig(**ENV_KW)
     jparams = j_make_params()
-    keys = jax.random.split(jax.random.PRNGKey(5), E)
-    reset = jax.jit(jax.vmap(lambda k: j_multi.env_reset(
-        jcfg, jparams, k, rew_coeff=JRewardCoeffs(**REWARD))))
-    jstate, jobs = reset(keys)
+    tcfg = t_multi.EnvConfig(**ENV_KW)
+    gen = torch.Generator().manual_seed(5)
+    tstate, tobs = t_multi.env_reset(tcfg, t_make_params(), gen, E,
+                                     device="cpu",
+                                     rew_coeff=RewardCoeffs(**REWARD))
     ep_len = jcfg.ep_len                                  # 250
-    jstate = jstate.replace(tick=jnp.asarray(
-        [199, 199, ep_len, ep_len], jnp.int32))
-    pos = jstate.dyn.pos
-    pos = pos.at[:, :, 2].set(jnp.maximum(pos[:, :, 2], 1.5))
-    pos = _set(pos, (1, 1), pos[1, 0] + jnp.asarray([0.05, 0.0, 0.0]))
-    jstate = jstate.replace(dyn=jstate.dyn.replace(pos=pos))
+    pos = tstate.dyn.pos.clone()
+    pos[:, :, 2] = torch.clamp(pos[:, :, 2], min=1.5)
+    pos[1, 1] = pos[1, 0] + torch.tensor([0.05, 0.0, 0.0])
+    tstate = tstate.replace(
+        dyn=tstate.dyn.replace(pos=pos),
+        tick=torch.tensor([199, 199, ep_len, ep_len], dtype=torch.int32))
+    jstate, jobs = _jax_state(tstate), jnp.asarray(tobs.numpy())
 
     rstate = jax.vmap(j_replay.init_replay_state)(jstate)
     # Ring slot s of env e: the env's state moved by 0.01 * (s + 1) m with

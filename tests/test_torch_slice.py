@@ -1,10 +1,11 @@
 """The rollout slice as a whole: policy forward + batched env step.
 
 2 envs x 8 drones, the mix curriculum, 6 visible neighbors, downwash on.
-A JAX `env_reset` state is converted to the port; drones are placed so that
-the first ticks see a drone-drone collision, downwash, a wall, a ceiling
-and a floor crash.  Each tick both packages run the policy (converted flax
-weights), sample actions from the same standard normals, and step with
+A port `env_reset` state is carried over to the JAX package's EnvState
+(`_jax_state`); drones are placed so that the first ticks see a
+drone-drone collision, downwash, a wall, a ceiling and a floor crash.
+Each tick both packages run the policy (converted flax weights), sample
+actions from the same standard normals, and step with
 every random draw injected (the JAX side through its `dyn_override`,
 `set_response_tape` and the recorded-draw stand-in of
 tests/test_torch_env_parts.py); states, observations, rewards and the info
@@ -30,7 +31,6 @@ from quadswarm_tpu.env import multi as j_multi
 from quadswarm_tpu.env import scenarios as j_scen
 from quadswarm_tpu.env import sensor as j_sensor
 from quadswarm_tpu.env.params import make_dynamics_params as j_make_params
-from quadswarm_tpu.env.reward import RewardCoeffs as JRewardCoeffs
 from quadswarm_tpu.models import actor_critic as j_ac
 from quadswarm_tpu_torch.env import multi as t_multi
 from quadswarm_tpu_torch.env.replay import ReplayState, init_replay_state
@@ -43,7 +43,10 @@ from quadswarm_tpu_torch.utils.convert import (
 )
 from quadswarm_tpu_torch.utils.struct import leaves
 
-from .test_torch_env_parts import assert_matches_jax, jax_tree_numpy, taped
+from .flax_params import random_flax_params
+from .test_torch_env_parts import (
+    _jax_state, assert_matches_jax, jax_tree_numpy, taped,
+)
 
 E, N = 2, 8
 ENV_KW = dict(num_agents=N, quads_mode="mix", neighbor_obs_type="pos_vel",
@@ -58,39 +61,42 @@ SENSOR_ORDER = ("pos_n", "pos_u", "vel_n", "vel_u", "omega_n", "theta_n",
                 "theta_u", "acc_n", "acc_dyn_n")
 
 
-def _set(x, idx, value):
-    return x.at[idx].set(jnp.asarray(value, x.dtype))
-
-
 @pytest.fixture(scope="module")
 def start():
-    """A JAX-reset pair of envs with interacting drones, and both models."""
+    """A port reset of a pair of envs with interacting drones, carried over
+    to the JAX package's EnvState (a JAX reset would compile for half a
+    minute), and both models on the same weights (a flax tree filled from
+    numpy, no init compile)."""
     jcfg = j_multi.EnvConfig(**ENV_KW)
     jparams = j_make_params()
-    keys = jax.random.split(jax.random.PRNGKey(11), E)
-    reset = jax.jit(jax.vmap(lambda k: j_multi.env_reset(
-        jcfg, jparams, k, rew_coeff=JRewardCoeffs(**REWARD))))
-    jstate, jobs = reset(keys)
-    d = jstate.dyn
-    pos, vel = d.pos, d.vel
-    pos = _set(pos, (0, 1), pos[0, 0] + jnp.asarray([0.05, 0.0, 0.0]))
-    vel = _set(vel, (0, 0), [1.0, 0.0, 0.0])              # head-on collision
-    vel = _set(vel, (0, 1), [-1.0, 0.0, 0.0])
-    pos = _set(pos, (0, 2), pos[0, 3] + jnp.asarray([0.02, 0.0, -0.3]))
-    pos = _set(pos, (1, 0), [4.995, 0.0, 2.0])             # wall next step
-    vel = _set(vel, (1, 0), [2.0, 0.0, 0.0])
-    pos = _set(pos, (1, 1), [0.0, 1.0, 9.995])             # ceiling
-    vel = _set(vel, (1, 1), [0.0, 0.0, 2.0])
-    pos = _set(pos, (1, 2), [1.0, -1.0, 0.06])   # floor crash, 2nd sub-step
-    vel = _set(vel, (1, 2), [0.0, 0.0, -2.0])
-    jstate = jstate.replace(dyn=d.replace(pos=pos, vel=vel))
+    tcfg = t_multi.EnvConfig(**ENV_KW)
+    gen = torch.Generator().manual_seed(11)
+    tstate, _ = t_multi.env_reset(tcfg, t_make_params(), gen, E,
+                                  device="cpu",
+                                  rew_coeff=RewardCoeffs(**REWARD))
+    pos, vel = tstate.dyn.pos.clone(), tstate.dyn.vel.clone()
+    pos[0, 1] = pos[0, 0] + torch.tensor([0.05, 0.0, 0.0])
+    vel[0, 0] = torch.tensor([1.0, 0.0, 0.0])             # head-on collision
+    vel[0, 1] = torch.tensor([-1.0, 0.0, 0.0])
+    pos[0, 2] = pos[0, 3] + torch.tensor([0.02, 0.0, -0.3])
+    pos[1, 0] = torch.tensor([4.995, 0.0, 2.0])           # wall next step
+    vel[1, 0] = torch.tensor([2.0, 0.0, 0.0])
+    pos[1, 1] = torch.tensor([0.0, 1.0, 9.995])           # ceiling
+    vel[1, 1] = torch.tensor([0.0, 0.0, 2.0])
+    pos[1, 2] = torch.tensor([1.0, -1.0, 0.06])   # floor crash, 2nd sub-step
+    vel[1, 2] = torch.tensor([0.0, 0.0, -2.0])
+    tstate = tstate.replace(dyn=tstate.dyn.replace(pos=pos, vel=vel))
+    obs, _ = t_multi._compute_obs(tcfg, tstate.dyn, tstate.scenario.goals,
+                                  tstate.gyro_bias, gen)
+    jstate = _jax_state(tstate)
 
     jmodel = j_ac.ActorCritic(**MODEL_KW, dtype=jnp.float32)
-    jpolicy = jmodel.init(jax.random.PRNGKey(0), jnp.zeros((1, 54), jnp.float32))
+    jpolicy = jax.tree.map(jnp.asarray, random_flax_params(jmodel, 54, 0))
     tmodel = t_ac.ActorCritic(**MODEL_KW, device="cpu")
     tmodel.load_state_dict(actor_critic_from_flax(
         jax.tree.map(np.asarray, jpolicy)))
-    return jcfg, jparams, jstate, jobs, jmodel, jpolicy, tmodel
+    return jcfg, jparams, jstate, jnp.asarray(obs.numpy()), jmodel, \
+        jpolicy, tmodel
 
 
 def _draws(rng) -> dict:
@@ -193,6 +199,7 @@ def _jax_step(jcfg, jparams, jstate, actions, draws):
 
 def test_slice_lockstep_with_jax(start):
     jcfg, jparams, jstate, jobs, jmodel, jpolicy, tmodel = start
+    j_policy = jax.jit(lambda p, o: j_ac.apply_fused(jmodel, p, o))
     tcfg = t_multi.EnvConfig(**ENV_KW)
     tparams = t_make_params()
     tstate = env_state_from_numpy(jax_tree_numpy(jstate))
@@ -203,8 +210,7 @@ def test_slice_lockstep_with_jax(start):
     for _ in range(3):
         # policy forward and actions from the same standard normals
         normal = rng.standard_normal((E * N, 4)).astype(np.float32)
-        jmean, jlog_std, jvalue = j_ac.apply_fused(
-            jmodel, jpolicy, jobs.reshape(E * N, -1))
+        jmean, jlog_std, jvalue = j_policy(jpolicy, jobs.reshape(E * N, -1))
         jactions = (jmean + jnp.exp(jlog_std) * normal).reshape(E, N, 4)
         with torch.no_grad():
             tmean, tlog_std, tvalue = t_ac.apply_fused(

@@ -346,26 +346,36 @@ def test_train_sh_flags_parse_alike_in_both_packages(script):
 
 @pytest.mark.parametrize("extra,error", [
     (["--quads_use_pallas=false"], ValueError),
-    (["--with_pbt=True", "--num_policies=4",
-      "--pbt_mix_policies_in_one_env=True"], NotImplementedError),
     (["--async_rl=True", "--appo_split_devices=1,1"], NotImplementedError),
     (["--multi_host=True"], NotImplementedError),
-    (["--dtype=bfloat16"], NotImplementedError),
 ])
 def test_flags_of_paths_not_ported_are_refused(extra, error):
-    with pytest.raises(error, match="ROADMAP.md|plain"):
+    with pytest.raises(error, match="item 14|plain"):
         t_config.parse_swarm_cfg(_train_sh_flags() + extra)
 
 
-@pytest.mark.parametrize("mode", ["o_swap_goals", "run_away"])
-def test_flags_of_ported_paths_parse(mode):
-    """Scenario modes the CLI refused before they were ported parse into
-    an env config that runs them."""
-    args = t_config.parse_swarm_cfg(_train_sh_flags()
-                                    + [f"--quads_mode={mode}"])
+@pytest.mark.parametrize("extra", [
+    ["--quads_mode=o_swap_goals"], ["--quads_mode=run_away"],
+    ["--with_pbt=True", "--num_policies=4",
+     "--pbt_mix_policies_in_one_env=True"],
+    ["--dtype=bfloat16"], ["--model_dtype=bfloat16"]],
+    ids=["o_swap_goals", "run_away", "pbt_mixed", "dtype_bf16",
+         "model_dtype_bf16"])
+def test_flags_of_ported_paths_parse(extra):
+    """Flags the CLI refused before their paths were ported parse into an
+    env config and a model that run them: scenario modes, mixed-policy
+    PBT, the bfloat16 env and the bfloat16 model."""
+    args = t_config.parse_swarm_cfg(_train_sh_flags() + extra)
     env = t_config.env_config_from_args(args)
-    assert env.quads_mode == mode
     env.check_supported()
+    if "--quads_mode" in extra[0]:
+        assert env.quads_mode == extra[0].split("=")[1]
+    assert env.dtype == (torch.bfloat16 if "--dtype=bfloat16" in extra
+                         else torch.float32)
+    assert t_config.model_dtype_from_args(args) == (
+        torch.bfloat16 if "--model_dtype=bfloat16" in extra
+        else torch.float32)
+    assert args.pbt_mix_policies_in_one_env == ("--num_policies=4" in extra)
 
 
 def _tiny_trainer(seed=0, replay=0.75):
