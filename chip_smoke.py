@@ -103,7 +103,22 @@ Phases, each raising on failure:
      objectives copying weights and Adam moments bit for bit, the stacked
      heads on the card against the CPU, K1 on the state reached; the CLI's
      mixed branch at a small width, 8 checkpoints and pbt_state.json, and
-     a resume.
+     a resume;
+ 16. dist: training on more than one rank, each world in processes of its
+     own started with torchrun's variables and train.sh's flags plus
+     --multi_host=True, as the train CLI starts: (a) a 1-rank NCCL world at
+     full width (1024 x 8 x 128) for 2 iterations in turns with the
+     one-card Trainer (K1 128 an iteration, one sync a tick, the first
+     rollout equal bit for bit, the learner within the learner check's bounds
+     of the one-card learner on it: the first minibatch's gradients, the
+     parameters after 4 steps); (b) 2 ranks sharing the card over gloo at
+     2 x 512 envs for 2 iterations, the weights equal bit for bit across
+     the ranks after each, K1 128 an iteration on each rank, then the
+     2-rank learner against one process on a fixed trajectory; (c) APPO
+     with --appo_split_devices=1,1 at --rollout=16 on 2 ranks (env state
+     only on rank 0, the optimizer only on rank 1, the trajectory received
+     equal to the one sent, the learner against the one-process learner on
+     it); (d) analysis/scaling.py --mode fixed --devices 1,2 at rollout 16.
 
     python3 chip_smoke.py --phases build,profile --trace out/trace.json
     python3 chip_smoke.py --phases build,profile --profile_path swarm
@@ -117,6 +132,10 @@ rollout, or of train.sh's Trainer (in float32 or bfloat16), the final
 obstacle run's or the PBT run's mixed runner (rollout ticks, then
 minibatch steps): device time by kernel, the device's busy share; with
 --trace it writes the Chrome trace.
+
+    python3 chip_smoke.py --phases build,dist
+
+runs the multi-rank paths alone (about 3 minutes).
 
     python3 chip_smoke.py --phases build,sweep
 
@@ -1409,10 +1428,11 @@ class SyncCounter:
 
 
 def _flagship_trainer(device="cuda", script: str = "train.sh",
-                      argv: list | None = None):
+                      argv: list | None = None, mesh=None):
     """A Trainer at a training script's settings (train.sh's by default),
     or at the flags `argv`, built as the CLI builds it (an APPOTrainer under
-    --async_rl)."""
+    --async_rl, split by --appo_split_devices), on `mesh` (the CLI's: the
+    job's world, one rank without a process group)."""
     import torch
     from quadswarm_tpu_torch.env.params import make_dynamics_params
     from quadswarm_tpu_torch.parallel.appo import APPOTrainer
@@ -1428,11 +1448,13 @@ def _flagship_trainer(device="cuda", script: str = "train.sh",
     kwargs = dict(seed=args.seed,
                   anneal_schedules=config.anneal_schedules_from_args(args),
                   base_rew_coeff=config.base_rew_coeff_from_args(args),
-                  device=device)
+                  device=device, mesh=mesh)
     if args.async_rl:
         return APPOTrainer(env_cfg, ppo, model,
                            make_dynamics_params(dt=env_cfg.dt),
-                           policy_lag=args.policy_lag, **kwargs)
+                           policy_lag=args.policy_lag,
+                           split_mesh=config.appo_split_from_args(args),
+                           **kwargs)
     return Trainer(env_cfg, ppo, model, make_dynamics_params(dt=env_cfg.dt),
                    **kwargs)
 
@@ -3166,6 +3188,496 @@ def phase_mixed(card: str, train_dir: str) -> tuple:
     return total, check
 
 
+# ---------------------------------------------------------------------------
+# Training on more than one rank (parallel/mesh.py, parallel/distributed.py)
+# ---------------------------------------------------------------------------
+
+DIST_ITERS = 2
+DIST_STEPS = 4            # learner steps checked, as `_learner_agree`'s
+DIST_APPO_ROLLOUT = 16    # the split's depth, cut from 128
+DIST_RESULT = "DIST_RESULT "
+SCALING_ARGS = ["--mode", "fixed", "--devices", "1,2", "--total_envs", "1024",
+                "--rollout", "16", "--iters", "2", "--repeats", "2"]
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _run_ranks(card: str, part: str, world: int, timeout: int = 300) -> list:
+    """`world` ranks of `chip_smoke.py --dist_worker <part>`, started with
+    torchrun's variables on this host; their lines are echoed, and each
+    rank's result (its DIST_RESULT line) returned.  Each rank writes to a
+    file of its own (a pipe read one rank at a time could fill and stall
+    a rank inside a collective), echoed also when a rank fails."""
+    import os
+    import tempfile
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent
+    env = {**os.environ, "PYTHONPATH": str(root), "PYTHONUNBUFFERED": "1",
+           "MASTER_ADDR": "localhost", "MASTER_PORT": str(_free_port()),
+           "WORLD_SIZE": str(world), "LOCAL_WORLD_SIZE": str(world),
+           "QS_CARD": card}
+    with tempfile.TemporaryDirectory() as tmp:
+        logs = [Path(tmp) / f"rank{r}.log" for r in range(world)]
+        procs = []
+        for r, log in enumerate(logs):
+            with open(log, "w") as f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(Path(__file__).resolve()),
+                     "--dist_worker", part], cwd=root, stdout=f,
+                    stderr=subprocess.STDOUT,
+                    env={**env, "RANK": str(r), "LOCAL_RANK": str(r)}))
+        deadline = time.monotonic() + timeout
+        try:
+            for p in procs:
+                p.wait(timeout=max(deadline - time.monotonic(), 1))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        outs = [log.read_text() for log in logs]
+    results = []
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        lines = out.splitlines()
+        for line in lines:
+            if not line.startswith(DIST_RESULT):
+                print(line if line.startswith("[") else f"  rank {r}: {line}")
+        if p.returncode:
+            raise AssertionError(f"dist {part} rank {r} exited "
+                                 f"{p.returncode} (killed after {timeout} s "
+                                 "if negative)")
+        results.append(json.loads(next(
+            ln for ln in lines if ln.startswith(DIST_RESULT))[
+                len(DIST_RESULT):]))
+    return results
+
+
+def _dist_init(flags: list):
+    """The train CLI's start of a multi-rank job: the flags with
+    --multi_host=True, `init_distributed` before the card is touched, the
+    world's mesh."""
+    from quadswarm_tpu_torch.parallel.distributed import init_distributed
+    from quadswarm_tpu_torch.parallel.mesh import make_mesh
+    from quadswarm_tpu_torch.training import config
+
+    argv = flags + ["--multi_host=True"]
+    args = config.parse_swarm_cfg(argv)
+    if not args.multi_host:
+        raise AssertionError("--multi_host did not parse")
+    init_distributed(device=args.device)
+    return argv, make_mesh(device=args.device)
+
+
+def _params_equal_across_ranks(mesh, model) -> bool:
+    """Whether every rank of a gloo mesh holds rank 0's parameters bit for
+    bit."""
+    import torch
+    import torch.distributed as dist
+    flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+    ref = flat.clone()
+    dist.broadcast(ref, src=mesh.ranks[0], group=mesh.group)
+    same = torch.tensor([int(torch.equal(flat, ref))])
+    dist.all_reduce(same, op=dist.ReduceOp.MIN, group=mesh.group)
+    return bool(same.item())
+
+
+def _learner_vs_one_process(card: str, label: str, mesh, weights: dict,
+                            cfg, traj, adv, ret) -> None:
+    """DIST_STEPS minibatch steps of the mesh's learner (each rank its envs
+    of `traj`, the global layout, one set of permutations) against the
+    learner of one process over the whole `traj` from the same weights:
+    the first minibatch's averaged gradient within rtol GRAD_RTOL plus
+    GRAD_ATOL of the model's largest entry, the parameters after
+    DIST_STEPS steps within the learning rate (the learner check's bounds).
+    Every rank takes part; rank 0 compares."""
+    import copy
+    import torch
+    from quadswarm_tpu_torch.parallel import ppo as P
+    from quadswarm_tpu_torch.parallel.mesh import shard_env_batch
+
+    dims = tuple(traj.reward.shape)
+    lay = P.minibatch_layout(dims, cfg.batch_size, cfg.sgd_shuffle_groups)
+    gen = torch.Generator(traj.obs.device).manual_seed(31)
+    perms = torch.stack([torch.randperm(lay.num_chunks, generator=gen,
+                                        device=traj.obs.device)
+                         for _ in range(lay.groups)])
+    full = (traj.obs, traj.actions, traj.log_prob, traj.value, adv, ret)
+    part = tuple(shard_env_batch(mesh, x, axis=1) for x in full)
+    runs = [("mesh", mesh, P.shuffled_minibatches(
+        part, dims, cfg.batch_size, None, cfg.sgd_shuffle_groups, perms,
+        shard=(mesh.rank, mesh.world)))]
+    if mesh.is_main:
+        runs.append(("one", None, P.shuffled_minibatches(
+            full, dims, cfg.batch_size, None, cfg.sgd_shuffle_groups, perms)))
+    models, grads = {}, {}
+    for name, m, batched in runs:
+        model = models[name] = copy.deepcopy(weights["model"])
+        model.load_state_dict(weights["state"])
+        opt = P.make_optimizer(model, cfg)
+        for i in range(DIST_STEPS):
+            loss, _ = P.ppo_loss(model, cfg, tuple(x[i] for x in batched),
+                                 mesh=m)
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            g = [p.grad for p in model.parameters()]
+            if m is not None:
+                P.all_reduce_grads_(m, g)
+            if i == 0:
+                grads[name] = [x.clone() for x in g]
+            P.clip_by_global_norm_(g, cfg.max_grad_norm)
+            opt.step()
+    if not mesh.is_main:
+        return
+    top = max(float(g.abs().max()) for g in grads["one"])
+    grad_err = 0.0
+    for (pname, _), g, w in zip(models["one"].named_parameters(),
+                                grads["mesh"], grads["one"]):
+        err = float((g - w).abs().max())
+        scale = float(w.abs().max())
+        if err > GRAD_RTOL * scale + GRAD_ATOL * top:
+            raise AssertionError(f"{label}: gradient of {pname} differs by "
+                                 f"{err} (largest entry {scale}, of the "
+                                 f"model {top})")
+        grad_err = max(grad_err, err / (scale + top))
+    diffs = torch.cat([(a.detach() - b.detach()).abs().flatten() for a, b in
+                       zip(models["mesh"].parameters(),
+                           models["one"].parameters())])
+    worst = float(diffs.max())
+    print(f"[{card}] {label}: the {mesh.world}-rank learner against one "
+          f"process on the same trajectory {dims} (batch {cfg.batch_size}, "
+          f"{lay.groups} env groups, the same permutations): the first "
+          f"minibatch's gradients within {grad_err:.3g} of each tensor's "
+          f"largest entry plus the model's (rtol {GRAD_RTOL}, atol "
+          f"{GRAD_ATOL} of {top:.3g}); after {DIST_STEPS} steps parameters "
+          f"max_abs_err {worst:.3g} (atol lr = {cfg.learning_rate}), "
+          f"{int((diffs > 1e-6).sum())} of {diffs.numel()} beyond 1e-6")
+    if worst > cfg.learning_rate:
+        raise AssertionError(f"{label}: parameters differ by {worst}")
+
+
+def _weights(model) -> dict:
+    import copy
+    return {"model": copy.deepcopy(model),
+            "state": {k: v.detach().clone()
+                      for k, v in model.state_dict().items()}}
+
+
+def _dist_world_of_one(card: str) -> dict:
+    """(a) A 1-rank NCCL world at train.sh's full width, in turns with the
+    one-card Trainer from the same seed: K1, syncs and times of each
+    iteration, the first rollout bit for bit, the learner within PR 5's
+    bounds on that rollout."""
+    import torch
+    import torch.distributed as dist
+    from quadswarm_tpu_torch.parallel import ppo as P
+    from quadswarm_tpu_torch.parallel.mesh import local_mesh
+
+    argv, mesh = _dist_init(train_sh_flags())
+    if (mesh.world, dist.get_backend()) != (1, "nccl"):
+        raise AssertionError(f"world {mesh.world}, {dist.get_backend()}")
+    rollouts = []
+    collect = P.collect_rollout
+
+    def spy(*a, **k):
+        out = collect(*a, **k)
+        if len(rollouts) < 2:
+            rollouts.append(out[3])
+        return out
+
+    P.collect_rollout = spy
+    one = _flagship_trainer(argv=argv, mesh=local_mesh())
+    ranked = _flagship_trainer(argv=argv, mesh=mesh)
+    if ranked.ppo_cfg.num_envs != 1024 or ranked.env_states.dyn.pos.shape[
+            0] != 1024 or one.mesh.distributed or not ranked.mesh.distributed:
+        raise AssertionError("not train.sh's width on a world of one")
+    weights = _weights(one.model)
+    counts, walls = _counts(), {"one": [], "nccl": []}
+    for it in range(DIST_ITERS):
+        walls["one"] += _iterations(card, f"dist one card #{it}", one, 1)[1]
+        c, w, _ = _iterations(card, f"dist NCCL world of one #{it}", ranked,
+                              1)
+        counts = {k: counts[k] + c[k] for k in counts}
+        walls["nccl"] += w
+        if it == 0:
+            a, b = rollouts
+            same = [f for f, x, y in zip(a._fields, a, b)
+                    if torch.equal(x, y)]
+            if len(same) != len(a):
+                raise AssertionError(f"first rollouts differ: equal {same}")
+            print(f"[{card}] dist world of one: the first rollout equals the "
+                  f"one-card Trainer's bit for bit ({', '.join(same)}; "
+                  f"{tuple(a.obs.shape)} observations)")
+    P.collect_rollout = collect
+    print(f"[{card}] dist world of one against one card, in turns "
+          f"(train.sh, 1024x8 x 128): NCCL "
+          f"{[round(x, 3) for x in walls['nccl']]} s, one card "
+          f"{[round(x, 3) for x in walls['one']]} s")
+    traj, cfg = rollouts[1], ranked.ppo_cfg
+    del one, ranked
+    _free()
+    with torch.no_grad():
+        last = torch.zeros_like(traj.value[0])
+        adv, ret = P.compute_gae(traj, last, cfg.gamma, cfg.gae_lambda)
+    _learner_vs_one_process(card, "dist world of one (NCCL)", mesh, weights,
+                            cfg, traj, adv, ret)
+    return {"counts": counts, "walls": walls}
+
+
+def _collective_ms(card: str, mesh, model, iters: int = 50) -> dict:
+    """Host ms of a learner step's collectives on this mesh, each timed
+    over `iters` calls that end in a device sync: the flat all-reduce of
+    the model's gradients (`all_reduce_grads_`) and a scalar all-reduce
+    (`all_sum`, as the advantage statistics take two a step)."""
+    import torch
+    from quadswarm_tpu_torch.parallel.mesh import all_reduce_grads_, all_sum
+    grads = [torch.ones_like(p) for p in model.parameters()]
+    scalar = torch.ones((), device=mesh.device)
+    out = {}
+    for name, fn in (("grads", lambda: all_reduce_grads_(mesh, grads)),
+                     ("scalar", lambda: all_sum(mesh, scalar))):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0) / iters * 1e3
+    n = sum(g.numel() for g in grads)
+    print(f"[{card}] dist {mesh.world} ranks sharing the card, rank "
+          f"{mesh.rank}: the gradient all-reduce of {n:,} float32 "
+          f"{out['grads']:.3f} ms, a scalar all-reduce {out['scalar']:.3f} "
+          f"ms (gloo over CUDA tensors, {iters} calls each)")
+    return out
+
+
+def _fixed_trajectory(device):
+    """_learner_agree's flagship-width trajectory, made on the card from a
+    seed: (8, 16, 8) with 54-wide observations."""
+    import torch
+    from quadswarm_tpu_torch.parallel import ppo as P
+    gen = torch.Generator(device).manual_seed(31)
+    t, e, n, dim = 8, 16, 8, 54
+    f = lambda *s: torch.randn((t, e, n) + s, generator=gen, device=device)
+    traj = P.Transition(obs=f(dim), actions=f(4), log_prob=f() - 5.0,
+                        value=f(), reward=f(), done=f() > 1.5)
+    return traj, f(), f()
+
+
+def _dist_shared(card: str) -> dict:
+    """(b) 2 ranks sharing the card (gloo over CUDA tensors), train.sh's
+    flags at 2 x 512 envs: DIST_ITERS iterations with the weights equal bit
+    for bit across the ranks after each, K1 128 launches an iteration on
+    each rank; then the 2-rank learner against one process on a fixed
+    trajectory."""
+    import torch
+    import torch.distributed as dist
+    from quadswarm_tpu_torch.models.actor_critic import ActorCritic
+    from quadswarm_tpu_torch.parallel import ppo as P
+
+    argv, mesh = _dist_init(train_sh_flags())
+    if (mesh.world, dist.get_backend()) != (2, "gloo"):
+        raise AssertionError(f"world {mesh.world}, {dist.get_backend()}")
+    trainer = _flagship_trainer(argv=argv, mesh=mesh)
+    ppo, t = trainer.ppo_cfg, trainer.ppo_cfg.rollout
+    e = trainer.env_states.dyn.pos.shape[0]
+    if (ppo.num_envs, e, ppo.sgd_shuffle_groups) != (1024, 512, 32):
+        raise AssertionError(f"{e} of {ppo.num_envs} envs, groups "
+                             f"{ppo.sgd_shuffle_groups}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counts, walls, equal = _counts(), [], []
+    for it in range(DIST_ITERS):
+        # no sync counter here: gloo's worker threads copy CUDA tensors to
+        # the host, and the debug mode would report each copy on stderr
+        _reset_counts()
+        t0 = time.perf_counter()
+        metrics, infos = trainer.iteration()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        c = _read_counts()
+        counts = {k: counts[k] + c[k] for k in counts}
+        if c != _counts(K1=t):
+            raise AssertionError(f"rank {mesh.rank} iteration {it}: {c}")
+        m = {k: float(v) for k, v in metrics.items()}
+        if not all(math.isfinite(v) for v in m.values()):
+            raise AssertionError(f"rank {mesh.rank} iteration {it}: {m}")
+        equal.append(_params_equal_across_ranks(mesh, trainer.model))
+        sec = trainer.seconds
+        print(f"[{card}] dist 2 ranks sharing the card, rank {mesh.rank} "
+              f"iteration {it} ({e}x8 x {t} a rank, global batch "
+              f"{ppo.batch_size}): {walls[-1]:.3f} s = rollout "
+              f"{sec['rollout']:.3f} s + learner {sec['learner']:.3f} s "
+              f"({sec['learner'] / (1024 * 8 * t // ppo.batch_size) * 1e3:.3f}"
+              f" ms per minibatch step); {2 * e * 8 * t / walls[-1]:,.0f} "
+              f"training agent-steps/s of the world; loss {m['loss']:.5g}; "
+              f"K1 launches {c['K1']}; weights equal across the ranks: "
+              f"{equal[-1]}; peak "
+              f"allocated {torch.cuda.max_memory_allocated() / 2**20:,.0f} "
+              "MiB")
+        if not equal[-1]:
+            raise AssertionError(f"iteration {it}: the ranks' weights differ")
+    stats = trainer.episode_stats(infos)
+    collectives = _collective_ms(card, mesh, trainer.model)
+    del trainer
+    _free()
+    traj, adv, ret = _fixed_trajectory(mesh.device)
+    torch.manual_seed(31)
+    model = ActorCritic(num_neighbors=6, rnn_size=256, neighbor_hidden=256,
+                        device=mesh.device)
+    _learner_vs_one_process(
+        card, "dist 2 ranks sharing the card (gloo)", mesh, _weights(model),
+        P.PPOConfig(batch_size=256, sgd_shuffle_groups=32), traj, adv, ret)
+    return {"counts": counts, "walls": walls, "equal": equal,
+            "episodes": stats.get("num_episodes", 0),
+            "collectives_ms": collectives}
+
+
+def _field_sums(traj, last_obs) -> list:
+    """Each field's sum and sum of squares in float64, in one layout."""
+    return [float(f(x.double().contiguous()).sum()) for x in (*traj, last_obs)
+            for f in (lambda y: y, lambda y: y * y)]
+
+
+def _dist_appo_split(card: str) -> dict:
+    """(c) --async_rl=True --appo_split_devices=1,1 on 2 ranks sharing the
+    card at --rollout=DIST_APPO_ROLLOUT: DIST_ITERS iterations; the env
+    state only on rank 0 and the optimizer only on rank 1; the trajectory
+    rank 1 received equals what rank 0 rolled out; the loss finite; on that
+    trajectory the learner against the one-process APPO learner."""
+    import torch
+    import torch.distributed as dist
+    from quadswarm_tpu_torch.parallel import appo as A
+    from quadswarm_tpu_torch.parallel import ppo as P
+
+    argv, mesh = _dist_init(train_sh_flags() + [
+        "--async_rl=True", "--policy_lag=1", "--with_vtrace=True",
+        "--appo_split_devices=1,1", f"--rollout={DIST_APPO_ROLLOUT}"])
+    seen = {}
+    learn, collect = A.appo_learn, A.collect_rollout
+
+    def spy_learn(model, opt, cfg, traj, last_obs, gen, norm, m):
+        seen.update(traj=traj, last=last_obs, weights=_weights(model),
+                    norm=norm)
+        return learn(model, opt, cfg, traj, last_obs, gen, norm, m)
+
+    def spy_collect(*a, **k):
+        out = collect(*a, **k)
+        seen.update(traj=out[3], last=out[1])
+        return out
+
+    A.appo_learn, A.collect_rollout = spy_learn, spy_collect
+    trainer = _flagship_trainer(argv=argv, mesh=mesh)
+    rolls = mesh.rank == 0
+    placed = (trainer.env_states is not None, trainer.optimizer is not None)
+    if placed != ((True, False) if rolls else (False, True)):
+        raise AssertionError(f"rank {mesh.rank}: env state, optimizer "
+                             f"{placed}")
+    counts, walls, t = _counts(), [], DIST_APPO_ROLLOUT
+    for it in range(DIST_ITERS):
+        _reset_counts()
+        t0 = time.perf_counter()
+        metrics, infos = trainer.iteration()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        c = _read_counts()
+        counts = {k: counts[k] + c[k] for k in counts}
+        if c != (_counts(K1=t) if rolls else _counts()):
+            raise AssertionError(f"rank {mesh.rank} iteration {it}: {c}")
+        loss = float(metrics["loss"])
+        if not math.isfinite(loss):
+            raise AssertionError(f"iteration {it}: loss {loss}")
+        sums = [_field_sums(seen["traj"], seen["last"])]
+        box = [sums[0] if rolls else None]
+        dist.broadcast_object_list(box, src=0)
+        if not rolls and box[0] != sums[0]:
+            raise AssertionError(f"iteration {it}: the trajectory rank 1 "
+                                 "received differs from rank 0's rollout")
+        sec = trainer.seconds
+        role = ("rollout: env state, behaviour queue" if rolls
+                else "learner: optimizer, normalizer")
+        print(f"[{card}] dist APPO split 1,1 rank {mesh.rank} ({role}) "
+              f"iteration {it} ({trainer.ppo_cfg.num_envs}x8 x {t}): "
+              f"{walls[-1]:.3f} s = "
+              f"{sec['rollout']:.3f} s to the trajectory's arrival + "
+              f"{sec['learner']:.3f} s to the weights' broadcast; loss "
+              f"{loss:.5g}; K1 launches {c['K1']}; trajectory received "
+              f"equal to the one sent: {rolls or box[0] == sums[0]}")
+    if not rolls:
+        cfg = trainer.ppo_cfg
+        w = seen["weights"]
+        model = w["model"]
+        model.load_state_dict(w["state"])
+        adv, ret = A.learner_targets(model, cfg, seen["traj"], seen["last"],
+                                     seen["norm"])
+        _learner_vs_one_process(card, "dist APPO split 1,1 learner",
+                                trainer.mesh, w, cfg, seen["traj"], adv, ret)
+    A.appo_learn, A.collect_rollout = learn, collect
+    return {"counts": counts, "walls": walls}
+
+
+def _dist_scaling(card: str) -> None:
+    """(d) analysis/scaling.py at a small rollout: worlds of 1 and 2 ranks
+    on the card, its JSON lines."""
+    import os
+    from pathlib import Path
+    root = Path(__file__).resolve().parent
+    out = subprocess.run(
+        [sys.executable, "-m", "quadswarm_tpu_torch.analysis.scaling",
+         *SCALING_ARGS], cwd=root, capture_output=True, text=True,
+        timeout=400, env={**os.environ, "PYTHONPATH": str(root)})
+    lines = [json.loads(x) for x in out.stdout.splitlines()
+             if x.startswith("{")]
+    for line in lines:
+        print(f"[{card}] scaling {json.dumps(line)}")
+    if out.returncode or len(lines) != 3 or lines[2][
+            "learner_rows_scaling"] != {"1": 1.0, "2": 2.0}:
+        raise AssertionError(f"scaling exited {out.returncode}: "
+                             f"{out.stderr[-2000:]}")
+
+
+DIST_PARTS = {"one": _dist_world_of_one, "shared": _dist_shared,
+              "split": _dist_appo_split}
+
+
+def dist_worker(part: str) -> int:
+    """One rank of a `dist` phase world (started by `_run_ranks`)."""
+    import os
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    result = DIST_PARTS[part](os.environ["QS_CARD"])
+    print(DIST_RESULT + json.dumps(result), flush=True)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def phase_dist(card: str) -> dict:
+    """Training on more than one rank: (a) a 1-rank NCCL world at train.sh's
+    full width in turns with the one-card Trainer, (b) 2 ranks sharing the
+    card over gloo, (c) APPO's split 1,1 on 2 ranks, (d) the scaling tool
+    at worlds of 1 and 2.  Returns the launch counts of each path (rank 0's;
+    each rank's are checked)."""
+    t0 = time.perf_counter()
+    _free()
+    (one,) = _run_ranks(card, "one", 1)
+    shared = _run_ranks(card, "shared", 2)
+    split = _run_ranks(card, "split", 2)
+    _dist_scaling(card)
+    print(f"[{card}] dist phase: {time.perf_counter() - t0:.1f} s")
+    return {"dist-1x1024x8": one["counts"],
+            "dist-2x512x8-shared": shared[0]["counts"],
+            "dist-appo-split-1+1": split[0]["counts"]}
+
+
 KERNELS = {
     "K1": ("dynamics", "quadswarm_tpu_torch/csrc/dynamics_kernel.cu",
            "quadswarm_tpu/ops/pallas/dynamics_kernel.py:98"),
@@ -3221,10 +3733,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="build,kernels,agree,rollout,swarm,sim,surface,"
-                            "train,obst,eval,runs,appo,pbt,bf16,mixed",
+                            "train,obst,eval,runs,appo,pbt,bf16,mixed,dist",
                     help="comma-separated subset of build,kernels,agree,"
                          "rollout,swarm,sim,surface,train,obst,eval,runs,"
-                         "appo,pbt,bf16,mixed,profile,sweep "
+                         "appo,pbt,bf16,mixed,dist,profile,sweep "
                          "(off by "
                          "default: "
                          "profile, a torch.profiler breakdown of a rollout; "
@@ -3242,8 +3754,12 @@ def main(argv=None) -> int:
                          "obstacle run's (final), rollout ticks with replay "
                          "and minibatch steps; or the PBT run file's mixed "
                          "runner (mixed)")
+    ap.add_argument("--dist_worker", default=None, choices=tuple(DIST_PARTS),
+                    help="(internal) run as one rank of a dist phase world")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
+    if args.dist_worker:
+        return dist_worker(args.dist_worker)
 
     import torch
     if not torch.cuda.is_available():
@@ -3323,6 +3839,8 @@ def main(argv=None) -> int:
         launches["mixed-8x512x8"], check = phase_mixed(card, train_dir)
         checks["K1"].append(check)
     workdir.cleanup()
+    if "dist" in phases:
+        launches.update(phase_dist(card))
     if "profile" in phases:
         phase_profile(card, args.trace, args.profile_path)
 

@@ -400,12 +400,21 @@ dynamics_kernel(const Params prm, const float* __restrict__ table, int rows,
 // given grid, the least any kernel of that grid can take.
 __global__ void noop_kernel() {}
 
+// Makes `device` the calling thread's current device of this library's
+// CUDA runtime, which is device 0 until set: a launch must go to the
+// device of the caller's stream and tensors.  0 or the error.
+int use_device(int device) {
+  int current = -1;
+  if (cudaGetDevice(&current) == cudaSuccess && current == device) return 0;
+  return static_cast<int>(cudaSetDevice(device));
+}
+
 }  // namespace
 
 extern "C" {
 
-// Launches the kernel on `stream` and returns cudaGetLastError() (0 on
-// success).  Shared parameters: `host_params` points to N_PARAMS floats in
+// Launches the kernel on `stream` of device `device` and returns
+// cudaGetLastError() (0 on success).  Shared parameters: `host_params` points to N_PARAMS floats in
 // host memory, copied into the launch arguments, and `table` is null.
 // Per-drone parameters: `table` points to a (rows, N_PARAMS) float32 table
 // in device memory, drone b reads row b % rows, and `host_params` is not
@@ -415,7 +424,8 @@ extern "C" {
 // must be 16-byte aligned.
 int qs_dynamics_step(const float* host_params, const float* table, int rows,
                      int sim_steps, int ortho_every, int n,
-                     void* const* ptrs, void* stream) {
+                     void* const* ptrs, int device, void* stream) {
+  if (const int err = use_device(device)) return err;
   Params prm = {};
   if (table == nullptr) {
     for (int k = 0; k < N_PARAMS; ++k) prm.v[k] = host_params[k];
@@ -451,7 +461,8 @@ int qs_dynamics_step(const float* host_params, const float* table, int rows,
 }
 
 // An empty kernel at the given grid, for timing the launch floor.
-int qs_launch_floor(int blocks, int threads, void* stream) {
+int qs_launch_floor(int blocks, int threads, int device, void* stream) {
+  if (const int err = use_device(device)) return err;
   noop_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }

@@ -76,16 +76,22 @@ def load(source: str) -> ctypes.CDLL:
     return _LOADED[source]
 
 
+def device_index(device: torch.device) -> int:
+    """The index of a CUDA device (the current one when it has none), as
+    each kernel's entry point takes it: the library's own CUDA runtime
+    launches on its current device, device 0 until the entry point sets
+    it."""
+    return torch.cuda.current_device() if device.index is None \
+        else device.index
+
+
 def current_stream(device: torch.device) -> int:
     """The handle of PyTorch's current CUDA stream on `device`, as the
     integer a kernel's entry point takes.  Read through the private
     `torch._C._cuda_getCurrentRawStream`, which builds no Stream object;
     `torch.cuda.current_stream(device).cuda_stream` is the public way to
     the same handle, should a PyTorch release drop the private name."""
-    index = device.index
-    if index is None:
-        index = torch.cuda.current_device()
-    return torch._C._cuda_getCurrentRawStream(index)
+    return torch._C._cuda_getCurrentRawStream(device_index(device))
 
 
 def check_tensor(name: str, t: torch.Tensor, shape: tuple, dtype,

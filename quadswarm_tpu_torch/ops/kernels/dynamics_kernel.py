@@ -259,12 +259,13 @@ def _load():
     fn = lib.qs_dynamics_step
     fn.argtypes = [ctypes.POINTER(ctypes.c_float), ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p]
+                   ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
+                   ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.qs_dynamics_block_threads.argtypes = []
     lib.qs_dynamics_block_threads.restype = ctypes.c_int
     lib.qs_launch_floor.argtypes = [ctypes.c_int, ctypes.c_int,
-                                    ctypes.c_void_p]
+                                    ctypes.c_int, ctypes.c_void_p]
     lib.qs_launch_floor.restype = ctypes.c_int
     lib.qs_error_string.argtypes = [ctypes.c_int]
     lib.qs_error_string.restype = ctypes.c_char_p
@@ -313,11 +314,13 @@ def dynamics_tick_fused(params, cfg: DynamicsConfig, state: DroneState,
         table = _param_table_on(params, cfg, device)
         rc = lib.qs_dynamics_step(None, table.data_ptr(), table.shape[0],
                                   cfg.sim_steps, cfg.orthonormalize_every, b,
-                                  _PTRS, build.current_stream(device))
+                                  _PTRS, build.device_index(device),
+                                  build.current_stream(device))
     else:
         rc = lib.qs_dynamics_step(_param_buffer(params, cfg), None, 0,
                                   cfg.sim_steps, cfg.orthonormalize_every, b,
-                                  _PTRS, build.current_stream(device))
+                                  _PTRS, build.device_index(device),
+                                  build.current_stream(device))
     if rc != 0:
         raise RuntimeError("dynamics kernel launch failed: "
                            + lib.qs_error_string(rc).decode())
@@ -344,8 +347,9 @@ def launch_floor(blocks: int, threads: int) -> None:
     in a CUDA graph it gives the card's launch floor, the least any kernel
     of that grid can take.  Not counted as a launch of K1."""
     lib = _load()
-    rc = lib.qs_launch_floor(blocks, threads,
-                             build.current_stream(torch.device("cuda")))
+    device = torch.device("cuda")
+    rc = lib.qs_launch_floor(blocks, threads, build.device_index(device),
+                             build.current_stream(device))
     if rc != 0:
         raise RuntimeError("empty kernel launch failed: "
                            + lib.qs_error_string(rc).decode())

@@ -185,13 +185,15 @@ def _load():
         return lib
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.qs_pair_collisions.argtypes = [ptr, ptr, i32, i32, i32, i32, f32, f32,
-                                       f32, f32, ptr, ptr, ptr, ptr, ptr, ptr]
+                                       f32, f32, ptr, ptr, ptr, ptr, ptr, i32,
+                                       ptr]
     lib.qs_swarm_interactions.argtypes = [ptr, i32, i32, i32, i32, f32, f32,
-                                          f32, f32, ptr, ptr, ptr, ptr, ptr]
+                                          f32, f32, ptr, ptr, ptr, ptr, i32,
+                                          ptr]
     lib.qs_pair_shared_bytes.argtypes = [i32, i32, i32, i32, i32]
     lib.qs_pair_shared_bytes.restype = ctypes.c_longlong
     lib.qs_neighbor_topk.argtypes = [ptr, ptr, i32, i32, i32, i32, i32, ptr,
-                                     ptr]
+                                     i32, ptr]
     for fn in (lib.qs_pair_collisions, lib.qs_swarm_interactions,
                lib.qs_neighbor_topk):
         fn.restype = ctypes.c_int
@@ -202,9 +204,11 @@ def _load():
 
 
 def _launch(name: str, fn_name: str, device, *args) -> None:
-    """Call one entry point on the current stream; raise on a launch error."""
+    """Call one entry point on `device`'s current stream; raise on a launch
+    error."""
     lib = _load()
-    rc = getattr(lib, fn_name)(*args, build.current_stream(device))
+    rc = getattr(lib, fn_name)(*args, build.device_index(device),
+                               build.current_stream(device))
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: "
                            + lib.qs_error_string(rc).decode())

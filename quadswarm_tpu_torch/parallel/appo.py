@@ -1,4 +1,4 @@
-"""APPO on one device: policy lag and the V-trace correction.
+"""APPO: policy lag and the V-trace correction, on one card or a mesh.
 
 Port of quadswarm_tpu/parallel/appo.py (the stand-in for Sample Factory's
 APPO, which the reference trains with).  An iteration is a rollout under a
@@ -14,9 +14,21 @@ log-probs and values.
 As on one TPU chip, the rollout and the learner do not overlap on the card:
 they run one after the other, so on one device APPO is a semantic choice
 (staleness tolerance and V-trace), not a throughput one.  `policy_lag=0` is
-synchronous PPO with the learner-side advantages.  The JAX package's
-`split_mesh` (rollout and learner on disjoint devices) is ROADMAP.md item
-14 and not ported.
+synchronous PPO with the learner-side advantages.  On a mesh of ranks the
+learner is the data-parallel one of `parallel/ppo.py`.
+
+`split_mesh=(R, L)` (the CLI's `--appo_split_devices=R,L`, the JAX
+package's disjoint submeshes) runs on a world of exactly R + L ranks: ranks
+0..R-1 hold the env batch (E / R envs each), the replay state and the
+behaviour queue; ranks R..R+L-1 hold the optimizer and the learner's
+normalizer, each E / L envs of the trajectory, and all-reduce among
+themselves.  Each iteration, in the JAX package's order: the rollout
+ranks roll out under queue[0], send the trajectory and the bootstrap
+observation to the learner ranks by env-range intersections (point to
+point), the learner ranks learn, and rank R broadcasts the fresh weights
+(appended to the behaviour queue), the normalizer and the metrics to every
+rank.  The halves wait on each other: no overlap is claimed, and none is
+measured.
 
 V-trace (Espeholt et al., 2018): with clipped importance weights
 rho_t = min(pi/mu, rho_clip), c_t = min(pi/mu, c_clip),
@@ -33,12 +45,18 @@ from collections import deque
 
 import torch
 
+import torch.distributed as dist
+
 from quadswarm_tpu_torch.models.actor_critic import gaussian_log_prob
+from quadswarm_tpu_torch.parallel import mesh as mesh_lib
+from quadswarm_tpu_torch.parallel.mesh import DataMesh
 from quadswarm_tpu_torch.parallel.normalize import NormalizerState
 from quadswarm_tpu_torch.parallel.ppo import (
-    PPOConfig, Trainer, Transition, _sync, collect_rollout, compute_gae,
-    minibatch_layout, policy_heads, sgd_epochs,
+    METRIC_KEYS, PPOConfig, Trainer, Transition, _sync, collect_rollout,
+    compute_gae, minibatch_layout, policy_heads, resolve_groups, sgd_epochs,
+    update_normalizers,
 )
+from quadswarm_tpu_torch.utils.struct import leaves, resolve_device
 
 
 def vtrace_advantages(ratio, reward, value, done, last_value, gamma: float,
@@ -102,26 +120,57 @@ def learner_targets(model, ppo_cfg: PPOConfig, traj: Transition, last_obs,
 
 def appo_learn(model, optimizer, ppo_cfg: PPOConfig, traj: Transition,
                last_obs, gen: torch.Generator | None,
-               norm_state: NormalizerState | None = None):
+               norm_state: NormalizerState | None = None,
+               mesh: DataMesh | None = None):
     """The learner half: targets under the current weights, the
-    normalizers' update, minibatch SGD on the original trajectory.
-    Returns (metrics, norm_state', seconds of the recompute, which ends in
-    a device sync)."""
+    normalizers' update, minibatch SGD on the original trajectory (the
+    rank's envs of it on a `mesh`).  Returns (metrics, norm_state',
+    seconds of the recompute, which ends in a device sync)."""
     t0 = time.perf_counter()
     advantages, returns = learner_targets(model, ppo_cfg, traj, last_obs,
                                           norm_state)
     _sync(last_obs.device)
     recompute = time.perf_counter() - t0
     with torch.no_grad():
-        if norm_state is not None and norm_state.obs is not None:
-            norm_state = norm_state.replace(obs=norm_state.obs.update(
-                traj.obs.reshape(-1, traj.obs.shape[-1])))
-        if norm_state is not None and norm_state.ret is not None:
-            norm_state = norm_state.replace(ret=norm_state.ret.update(returns))
+        norm_state = update_normalizers(norm_state, traj, returns, mesh)
     metrics = sgd_epochs(model, optimizer, ppo_cfg, traj, advantages,
-                         returns, gen, norm=norm_state)
-    metrics["reward_mean"] = torch.mean(traj.reward)
+                         returns, gen, norm=norm_state, mesh=mesh)
+    metrics["reward_mean"] = mesh_lib.all_mean(mesh, torch.mean(traj.reward))
     return metrics, norm_state, recompute
+
+
+def _pack(traj: Transition, last_obs) -> tuple:
+    """A trajectory and its bootstrap observation as float32 tensors (done
+    as 0/1, every other field exact): ((T, E, N, W), (E, N, obs))."""
+    f = lambda x: x.to(torch.float32)
+    scalars = [f(x)[..., None] for x in (traj.log_prob, traj.value,
+                                         traj.reward, traj.done)]
+    return torch.cat([f(traj.obs), f(traj.actions), *scalars], -1), \
+        f(last_obs)
+
+
+def _unpack(packed, last_obs, obs_dim: int, dtype) -> tuple:
+    """`_pack`'s inverse; observations and rewards in the env's dtype."""
+    a = packed.shape[-1] - obs_dim - 4
+    cut = lambda lo, hi: packed[..., lo:hi]
+    head = obs_dim + a
+    return Transition(
+        obs=cut(0, obs_dim).to(dtype), actions=cut(obs_dim, head).contiguous(),
+        log_prob=packed[..., head].contiguous(),
+        value=packed[..., head + 1].contiguous(),
+        reward=packed[..., head + 2].to(dtype),
+        done=packed[..., head + 3] > 0.5), last_obs.to(dtype)
+
+
+def _intersections(num_envs: int, senders: int, receivers: int):
+    """(sender i, receiver j, lo, hi): the envs [lo, hi) that sender i of
+    `senders` equal ranges holds and receiver j of `receivers` needs."""
+    s, r = num_envs // senders, num_envs // receivers
+    for i in range(senders):
+        for j in range(receivers):
+            lo, hi = max(i * s, j * r), min((i + 1) * s, (j + 1) * r)
+            if lo < hi:
+                yield i, j, lo, hi
 
 
 class APPOTrainer(Trainer):
@@ -135,26 +184,49 @@ class APPOTrainer(Trainer):
     def __init__(self, env_cfg, ppo_cfg: PPOConfig, model, dyn_params,
                  seed: int = 0, anneal_schedules: dict | None = None,
                  policy_lag: int = 1, base_rew_coeff: dict | None = None,
-                 device="cuda"):
-        super().__init__(env_cfg, ppo_cfg, model, dyn_params, seed=seed,
-                         anneal_schedules=anneal_schedules,
-                         base_rew_coeff=base_rew_coeff, device=device)
+                 device="cuda", mesh: DataMesh | None = None,
+                 split_mesh: tuple | None = None):
         if policy_lag < 0:
             raise ValueError(f"policy_lag must be >= 0, got {policy_lag}")
+        self.split = None
+        holds = ("env", "learner")
+        if split_mesh is not None:
+            world = mesh if mesh is not None else mesh_lib.make_mesh(
+                device=resolve_device(device))
+            r, l = split_mesh
+            if r + l != world.world:
+                raise ValueError(f"split_mesh={split_mesh} needs {r + l} "
+                                 f"devices, have {world.world}")
+            # the groups follow the learner's ranks, over which the
+            # trajectory is sharded
+            ppo_cfg = resolve_groups(ppo_cfg, l)
+            mesh_lib.replicate(world, model)
+            roll, learn = mesh_lib.split_mesh(world, (r, l))
+            self.split, self.world = (r, l), world
+            mesh = roll if roll is not None else learn
+            holds = ("env",) if roll is not None else ("learner",)
+        super().__init__(env_cfg, ppo_cfg, model, dyn_params, seed=seed,
+                         anneal_schedules=anneal_schedules,
+                         base_rew_coeff=base_rew_coeff, device=device,
+                         mesh=mesh, holds=holds)
         self.policy_lag = policy_lag
-        self.behavior = copy.deepcopy(model).requires_grad_(False)
         # (learner version, weights): version v is the output of the v-th
-        # learner call, 0 the initial weights
+        # learner call, 0 the initial weights.  Only ranks that roll out
+        # hold the behaviour and its queue.
         self.version = 0
-        self._param_queue = deque([(0, self._snapshot())],
-                                  maxlen=policy_lag + 1)
         self.behavior_version = 0
+        self.behavior = self._param_queue = None
+        if "env" in holds:
+            self.behavior = copy.deepcopy(model).requires_grad_(False)
+            self._param_queue = deque([(0, self._snapshot())],
+                                      maxlen=policy_lag + 1)
 
     def restart_behavior_queue(self) -> None:
         """The queue holds the current weights alone (after a checkpoint
         was loaded into the model)."""
-        self._param_queue.clear()
-        self._param_queue.append((self.version, self._snapshot()))
+        if self._param_queue is not None:
+            self._param_queue.clear()
+            self._param_queue.append((self.version, self._snapshot()))
 
     def _snapshot(self) -> dict:
         return {k: v.detach().clone()
@@ -163,7 +235,10 @@ class APPOTrainer(Trainer):
     def iteration(self):
         """One rollout under the lagged weights and one learner pass.
         Returns (metrics, infos); `self.seconds` holds the rollout and
-        learner split and the learner's recompute."""
+        learner split and the learner's recompute.  On a split, infos are
+        None on the learner ranks."""
+        if self.split is not None:
+            return self._split_iteration()
         self.behavior_version, weights = self._param_queue[0]
         self.behavior.load_state_dict(weights)
         t0 = time.perf_counter()
@@ -176,17 +251,98 @@ class APPOTrainer(Trainer):
         t1 = time.perf_counter()
         metrics, self.norm_state, recompute = appo_learn(
             self.model, self.optimizer, self.ppo_cfg, traj, self.obs,
-            self.gen, self.norm_state)
+            self.learner_gen, self.norm_state, self.mesh)
         _sync(self.device)
         self.seconds = {"rollout": t1 - t0,
                         "learner": time.perf_counter() - t1,
                         "recompute": recompute}
         self.version += 1
         self._param_queue.append((self.version, self._snapshot()))
+        self._count_steps()
+        return metrics, infos
+
+    def _count_steps(self) -> None:
         lay = minibatch_layout(
             (self.ppo_cfg.rollout, self.ppo_cfg.num_envs,
              self.env_cfg.num_agents), self.ppo_cfg.batch_size)
         self.step += lay.num_minibatches * self.ppo_cfg.num_epochs
         self.env_steps += (self.ppo_cfg.rollout * self.ppo_cfg.num_envs
                            * self.env_cfg.num_agents)
+
+    def _split_iteration(self):
+        """One iteration of `split_mesh=(R, L)` on this rank (module
+        docstring)."""
+        r, l = self.split
+        e = self.ppo_cfg.num_envs
+        rolls = self.optimizer is None
+        infos, metrics = None, None
+        t0 = time.perf_counter()
+        if rolls:
+            self.behavior_version, weights = self._param_queue[0]
+            self.behavior.load_state_dict(weights)
+            (self.env_states, self.obs, self.replay_states, traj, _,
+             infos) = collect_rollout(
+                self.env_cfg, self.dyn_params, self.behavior, self.ppo_cfg,
+                self.env_states, self.obs, self.gen, self.current_rew_coeff(),
+                self.replay_states, norm=self.norm_state)
+            packed, last = _pack(traj, self.obs)
+            lo = self.mesh.rank * (e // r)
+            sends = [(torch.cat([packed[:, a - lo:b - lo].reshape(-1),
+                                 last[a - lo:b - lo].reshape(-1)]), r + j)
+                     for i, j, a, b in _intersections(e, r, l)
+                     if i == self.mesh.rank]
+            mesh_lib.exchange(self.world, sends, [])
+        else:
+            t_dim, n = self.ppo_cfg.rollout, self.env_cfg.num_agents
+            obs_dim = self.env_cfg.obs_dim
+            width = obs_dim + self.model.action_head.out_features + 4
+            lo = self.mesh.rank * (e // l)
+            parts = [(i, a, b) for i, j, a, b in _intersections(e, r, l)
+                     if j == self.mesh.rank]
+            bufs = [torch.empty((b - a) * n * (t_dim * width + obs_dim),
+                                device=self.device) for _, a, b in parts]
+            mesh_lib.exchange(self.world, [], [
+                (buf, i) for buf, (i, _, _) in zip(bufs, parts)])
+            packed, last = [], []
+            for buf, (_, a, b) in zip(bufs, parts):
+                split = t_dim * (b - a) * n * width
+                packed.append(buf[:split].reshape(t_dim, b - a, n, width))
+                last.append(buf[split:].reshape(b - a, n, obs_dim))
+            traj, last_obs = _unpack(torch.cat(packed, 1), torch.cat(last),
+                                     obs_dim, self.env_cfg.dtype)
+        _sync(self.device)
+        t1 = time.perf_counter()
+        recompute = None
+        if not rolls:
+            metrics, self.norm_state, recompute = appo_learn(
+                self.model, self.optimizer, self.ppo_cfg, traj, last_obs,
+                self.learner_gen, self.norm_state, self.mesh)
+        # rank R's weights, normalizer and metrics to every rank
+        vec = (torch.stack([metrics[k].float() for k in METRIC_KEYS])
+               if metrics is not None else
+               torch.empty(len(METRIC_KEYS), device=self.device))
+        norm = [x for _, x in leaves(self.norm_state) if x is not None] \
+            if self.norm_state is not None else []
+        mesh_lib.replicate(self.world, list(
+            self.model.state_dict().values()) + norm + [vec], src=r)
+        metrics = dict(zip(METRIC_KEYS, vec.unbind(0)))
+        self.version += 1
+        if rolls:
+            self._param_queue.append((self.version, self._snapshot()))
+        _sync(self.device)
+        self.seconds = {"rollout": t1 - t0,
+                        "learner": time.perf_counter() - t1}
+        if recompute is not None:
+            self.seconds["recompute"] = recompute
+        self._count_steps()
         return metrics, infos
+
+    def episode_stats(self, infos) -> dict:
+        """On a split, the rollout ranks sum the stats and rank 0 hands
+        them to every rank (a collective every rank calls)."""
+        if self.split is None:
+            return super().episode_stats(infos)
+        box = [super().episode_stats(infos) if infos is not None else None]
+        dist.broadcast_object_list(box, src=self.world.ranks[0],
+                                   group=self.world.group)
+        return box[0]

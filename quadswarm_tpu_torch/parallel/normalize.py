@@ -15,7 +15,10 @@ Port of quadswarm_tpu/parallel/normalize.py (Sample Factory's
 
 The update is Chan et al.'s parallel-variance combine, with population
 statistics (`correction=0`, as `jnp.var`), so sequential batch updates equal
-the stats of the concatenated data.  A state is an immutable value: every
+the stats of the concatenated data.  On a mesh of ranks a batch is every
+rank's rows together: the global count, mean and centred sum of squares
+come from all-reduced sums, as the JAX package's statistics over a sharded
+batch are global.  A state is an immutable value: every
 update returns a new one.
 """
 from __future__ import annotations
@@ -24,6 +27,7 @@ import dataclasses
 
 import torch
 
+from quadswarm_tpu_torch.parallel.mesh import all_sum, world_size
 from quadswarm_tpu_torch.utils.struct import Struct, map_fields
 
 
@@ -49,30 +53,39 @@ class RunningMeanStd(Struct):
               + delta ** 2 * self.count * batch_count / total)
         return self.replace(mean=new_mean, var=m2 / total, count=total)
 
-    def update(self, x: torch.Tensor) -> "RunningMeanStd":
+    def update(self, x: torch.Tensor, mesh=None) -> "RunningMeanStd":
         """Fold a batch (leading axes arbitrary, trailing axes match mean)
-        into the running stats."""
+        into the running stats: its mean, then the mean square about it
+        (two passes, as `jnp.var`).  With a `mesh` of ranks the batch is
+        every rank's `x` together: the sums are all-reduced."""
         x = x.to(self.mean.dtype)
         dims = tuple(range(x.dim() - self.mean.dim()))
-        batch_mean = torch.mean(x, dim=dims)
-        batch_var = torch.var(x, dim=dims, correction=0)
-        batch_count = x.numel() // max(self.mean.numel(), 1)
+        batch_count = (x.numel() // max(self.mean.numel(), 1)
+                       * world_size(mesh))
+        batch_mean = all_sum(mesh, torch.sum(x, dim=dims)) / batch_count
+        batch_var = all_sum(mesh, torch.sum((x - batch_mean) ** 2,
+                                            dim=dims)) / batch_count
         return self._combine(batch_mean, batch_var, batch_count)
 
-    def update_masked(self, x: torch.Tensor,
-                      w: torch.Tensor) -> "RunningMeanStd":
+    def update_masked(self, x: torch.Tensor, w: torch.Tensor,
+                      mesh=None) -> "RunningMeanStd":
         """Fold only the rows of `x` with weight 1 in `w` into the stats.
 
         `x` is (B,) + mean.shape, `w` is (B,) in {0, 1}.  Equals `update()`
         restricted to the selected rows; with no selected row the stats are
-        unchanged."""
+        unchanged.  With a `mesh`, the rows of every rank: the count and
+        sum in one all-reduce, the sum of squares in a second."""
         x = x.to(self.mean.dtype)
         w = w.to(self.mean.dtype)
-        batch_count = torch.sum(w)
-        denom = torch.clamp(batch_count, min=1.0)
         wb = w.reshape(w.shape + (1,) * self.mean.dim())
-        batch_mean = torch.sum(wb * x, 0) / denom
-        batch_var = torch.sum(wb * (x - batch_mean) ** 2, 0) / denom
+        size = self.mean.numel()
+        first = all_sum(mesh, torch.cat([torch.sum(wb * x, 0).reshape(-1),
+                                         torch.sum(w).reshape(1)]))
+        batch_count = first[size]
+        denom = torch.clamp(batch_count, min=1.0)
+        batch_mean = (first[:size] / denom).reshape(self.mean.shape)
+        batch_var = all_sum(mesh, torch.sum(wb * (x - batch_mean) ** 2,
+                                            0)) / denom
         new = self._combine(batch_mean, batch_var, batch_count)
         empty = batch_count == 0
         return map_fields(lambda a, b: torch.where(empty, a, b), self, new)

@@ -1,4 +1,4 @@
-"""Population-based training over separate Trainers on one device.
+"""Population-based training over separate Trainers, on one card or a mesh.
 
 Port of quadswarm_tpu/parallel/pbt.py (Sample Factory's PBT as the
 reference's 8-policy obstacle run configures it): `num_policies` Trainers,
@@ -10,6 +10,12 @@ state of a top policy, with mutated reward-shaping coefficients (and, with
 `optimize_gamma`, a mutated discount).  Every host decision draws from one
 numpy `default_rng(seed)`, in the JAX package's order, so the decisions are
 the JAX package's draw for draw.
+
+On a mesh of ranks every policy's Trainer shards its env batch over the
+mesh (the JAX package's `mesh` argument): the objectives come from
+episode stats summed over the mesh and every rank's host generator has
+the same seed, so every rank takes the same decisions; only rank 0 logs
+and writes checkpoints.
 
 With `anneal_collision_steps > 0` the annealing schedule overrides the
 mutated base coefficients (`Trainer.current_rew_coeff`) until its ramp
@@ -77,7 +83,8 @@ class PBTRunner:
     def __init__(self, env_cfg, ppo_cfg, make_model: Callable, dyn_params,
                  pbt_cfg: PBTConfig, seed: int = 0, anneal_schedules=None,
                  exp_dir: str = "train_dir/pbt",
-                 base_rew_coeff: dict | None = None, device="cuda"):
+                 base_rew_coeff: dict | None = None, device="cuda",
+                 mesh=None):
         self.pbt_cfg = pbt_cfg
         self.exp_dir = exp_dir
         self.rng = np.random.default_rng(seed)
@@ -87,7 +94,8 @@ class PBTRunner:
             self.policies.append(PolicySlot(Trainer(
                 env_cfg, ppo_cfg, make_model(), dyn_params,
                 seed=seed + 1000 * p, anneal_schedules=anneal_schedules,
-                base_rew_coeff=base_rew_coeff, device=device)))
+                base_rew_coeff=base_rew_coeff, device=device, mesh=mesh)))
+        self.is_main = self.policies[0].trainer.mesh.is_main
 
     @property
     def total_env_steps(self) -> int:
@@ -145,9 +153,10 @@ class PBTRunner:
     def train(self, total_env_steps: int, log_every: int = 10) -> None:
         """Iterations in turns until the population has taken
         `total_env_steps`; each policy logs to `p{p}/metrics.jsonl` and is
-        saved at the end to `checkpoint_p{p}`.  A round runs when the last
-        policy is due, as in the JAX package."""
+        saved at the end to `checkpoint_p{p}` (by rank 0).  A round runs
+        when the last policy is due, as in the JAX package."""
         loggers = [MetricLogger(os.path.join(self.exp_dir, f"p{p}"))
+                   if self.is_main else None
                    for p in range(len(self.policies))]
         it = 0
         try:
@@ -156,7 +165,7 @@ class PBTRunner:
                     metrics, infos = slot.trainer.iteration()
                     stats = slot.trainer.episode_stats(infos)
                     self._record_objective(slot, stats)
-                    if it % log_every == 0:
+                    if it % log_every == 0 and self.is_main:
                         m = {k: float(v) for k, v in metrics.items()}
                         m.update(stats)
                         m["pbt/objective"] = slot.objective()
@@ -171,7 +180,10 @@ class PBTRunner:
                 it += 1
         finally:
             for logger in loggers:
-                logger.close()
+                if logger is not None:
+                    logger.close()
+        if not self.is_main:
+            return
         for p, slot in enumerate(self.policies):
             tr = slot.trainer
             save_checkpoint(os.path.join(self.exp_dir, f"checkpoint_p{p}"),

@@ -29,6 +29,17 @@ Form on one device:
 - normalizers are per policy (a stacked `NormalizerState`, each policy's
   statistics fed only by its agents' samples through `update_masked`).
 
+On a mesh of D ranks (`parallel/mesh.py`) each rank holds E / D envs of the
+shared batch and draws its own envs' assignments from its own generator;
+the learner takes its rows of the global minibatch layout (as
+`parallel/ppo.py`), each policy's masked advantage statistics and loss
+denominator are over the global minibatch (all-reduced before the vmapped
+step), the stacked gradients are summed in one flat all-reduce, and the
+normalizers and the objectives fold in every rank's samples.  The JAX
+package keeps one env group on a mesh (its stacked learner replicates);
+here a rank holds only its envs, so `sgd_shuffle_groups` resolves as the
+Trainer's does (32 on a mesh).
+
 `MixedPBTRunner` takes no annealing schedule, as the JAX package's does
 not (the training CLI warns when `--anneal_collision_steps` is set).
 A round copies the [P] slice of weights, Adam moments and normalizer of a
@@ -59,13 +70,18 @@ from quadswarm_tpu_torch.env.reward import RewardCoeffs
 from quadswarm_tpu_torch.models.actor_critic import (
     gaussian_entropy, gaussian_log_prob, sample_actions,
 )
+from quadswarm_tpu_torch.parallel.mesh import (
+    DataMesh, all_mean, all_reduce_grads_, all_sum, all_sum_dict, env_range,
+    make_mesh, replicate,
+)
 from quadswarm_tpu_torch.parallel.normalize import (
     NormalizerState, RunningMeanStd, denormalize_value, make_norm_state,
     normalize_obs,
 )
 from quadswarm_tpu_torch.parallel.pbt import MUTABLE_COEFFS, PBTConfig
 from quadswarm_tpu_torch.parallel.ppo import (
-    PPOConfig, _sync, compute_gae, shuffled_minibatches,
+    PPOConfig, _sync, check_layout, compute_gae, learner_seed, rank_seed,
+    resolve_groups, shuffled_minibatches,
 )
 from quadswarm_tpu_torch.utils.checkpoint import (
     checkpoint_dir, latest_checkpoint, load_checkpoint, save_checkpoint,
@@ -232,12 +248,14 @@ def mixed_rollout(env_cfg: EnvConfig, dyn_params, heads: StackedPolicies,
 # --------------------------------------------------------------------------
 
 def masked_ppo_loss(forward: Callable, ppo_cfg: PPOConfig, batch, mask,
-                    norm: NormalizerState | None = None):
+                    norm: NormalizerState | None = None, stats=None):
     """PPO loss averaged over one policy's samples only (mask in {0, 1}).
     `forward(obs)` is that policy's model; `norm` its normalizer.  The
     log-ratio is clamped to +-20: samples of other policies can overflow
     exp, and inf * 0 would poison the sum.  The denominator is
-    max(sum(mask), 1)."""
+    max(sum(mask), 1).  `stats` (mean, std, denominator) of the policy's
+    advantages replace the minibatch's own (on a mesh, the global
+    minibatch's: `masked_advantage_stats`)."""
     obs, actions, old_log_prob, old_value, advantages, returns = batch
     mean, log_std, value = forward(normalize_obs(norm, obs))
     mean, log_std, value = mean.float(), log_std.float(), value.float()
@@ -246,9 +264,13 @@ def masked_ppo_loss(forward: Callable, ppo_cfg: PPOConfig, batch, mask,
         old_value = norm.ret.normalize(old_value, clip=None)
     log_prob = gaussian_log_prob(mean, log_std, actions)
     ratio = torch.exp(torch.clamp(log_prob - old_log_prob, -20.0, 20.0))
-    denom = torch.clamp(torch.sum(mask), min=1.0)
-    mmean = torch.sum(advantages * mask) / denom
-    mstd = torch.sqrt(torch.sum(mask * (advantages - mmean) ** 2) / denom)
+    if stats is None:
+        denom = torch.clamp(torch.sum(mask), min=1.0)
+        mmean = torch.sum(advantages * mask) / denom
+        mstd = torch.sqrt(torch.sum(mask * (advantages - mmean) ** 2)
+                          / denom)
+    else:
+        mmean, mstd, denom = stats
     adv = (advantages - mmean) / (mstd + 1e-8)
     clip = ppo_cfg.ppo_clip_ratio
     pg = -torch.minimum(ratio * adv,
@@ -296,26 +318,50 @@ def make_stacked_optimizer(heads: StackedPolicies, ppo_cfg: PPOConfig):
     return opt
 
 
+def masked_advantage_stats(advantages, assign, p_count: int,
+                           mesh: DataMesh | None = None):
+    """Each policy's (mean, population std, denominator max(count, 1)) of
+    its samples' advantages over the minibatch of every rank of `mesh`:
+    the counts and sums in one all-reduce, then the sums of squares about
+    the global means in a second.  Each (P,)."""
+    hot = torch.nn.functional.one_hot(assign, p_count).to(advantages.dtype)
+    first = all_sum(mesh, torch.cat([hot.sum(0),
+                                     (hot * advantages[:, None]).sum(0)]))
+    denom = torch.clamp(first[:p_count], min=1.0)
+    mean = first[p_count:] / denom
+    sq = all_sum(mesh, (hot * (advantages[:, None] - mean) ** 2).sum(0))
+    return mean, torch.sqrt(sq / denom), denom
+
+
 def stacked_sgd_step(heads: StackedPolicies, optimizer, ppo_cfg: PPOConfig,
                      batch: tuple, assign: torch.Tensor,
-                     norm: NormalizerState | None = None) -> torch.Tensor:
+                     norm: NormalizerState | None = None,
+                     mesh: DataMesh | None = None) -> torch.Tensor:
     """One minibatch for all P policies: each policy's masked loss and its
     gradient in one vmapped `grad`, each clipped by its own global norm,
-    one Adam step over the stacked tensors.  Returns the losses (P,)."""
+    one Adam step over the stacked tensors.  Returns the losses (P,).  On
+    a `mesh` the minibatch is every rank's rows: the advantage statistics
+    and denominators are global, each rank's loss is its part of the
+    global one, and the gradients and losses are summed over the mesh."""
+    p_count = heads.num_policies
+    stats = masked_advantage_stats(batch[4], assign, p_count, mesh)
 
-    def loss_fn(params, buffers, nrm, pid):
+    def loss_fn(params, buffers, nrm, pid, st):
         forward = lambda x: functional_call(heads.base, (params, buffers),
                                             (x,))
         mask = (assign == pid).to(torch.float32)
-        return masked_ppo_loss(forward, ppo_cfg, batch, mask, _norm_of(nrm))
+        return masked_ppo_loss(forward, ppo_cfg, batch, mask, _norm_of(nrm),
+                               stats=st)
 
-    pids = torch.arange(heads.num_policies, device=assign.device)
+    pids = torch.arange(p_count, device=assign.device)
     # detached: the gradients are torch.func's, no outer graph is built
     params = {k: v.detach() for k, v in heads.params.items()}
     grads, losses = torch.vmap(grad_and_value(loss_fn),
-                               in_dims=(0, 0, 0, 0))(
-        params, heads.buffers, _norm_dict(norm), pids)
+                               in_dims=(0, 0, 0, 0, 0))(
+        params, heads.buffers, _norm_dict(norm), pids, stats)
     grads = [grads[k] for k in heads.params]
+    all_reduce_grads_(mesh, grads, average=False)
+    losses = all_sum(mesh, losses)
     clip_by_global_norm_stacked_(grads, ppo_cfg.max_grad_norm)
     for p, g in zip(heads.params.values(), grads):
         p.grad = g
@@ -324,14 +370,16 @@ def stacked_sgd_step(heads: StackedPolicies, optimizer, ppo_cfg: PPOConfig,
 
 
 def update_masked_stacked(norm: NormalizerState, obs_flat, ret_flat,
-                          assign_flat) -> NormalizerState:
+                          assign_flat,
+                          mesh: DataMesh | None = None) -> NormalizerState:
     """Each policy's normalizers fold in its own agents' samples
-    (`update_masked`), a loop over the P policies (the JAX package's
-    vmap): one (rows, obs_dim) deviation at a time, not P at once."""
+    (`update_masked`, every rank's on a `mesh`), a loop over the P
+    policies (the JAX package's vmap): one (rows, obs_dim) deviation at a
+    time, not P at once."""
     def update(stacked: RunningMeanStd, x):
         outs = [RunningMeanStd(stacked.mean[p], stacked.var[p],
                                stacked.count[p]).update_masked(
-                                   x, assign_flat == p)
+                                   x, assign_flat == p, mesh)
                 for p in range(stacked.mean.shape[0])]
         return map_fields(lambda *xs: torch.stack(xs), *outs)
     if norm.obs is not None:
@@ -341,26 +389,33 @@ def update_masked_stacked(norm: NormalizerState, obs_flat, ret_flat,
     return norm
 
 
-def policy_objectives(infos: dict, assignment: torch.Tensor, p_count: int):
+def policy_objectives(infos: dict, assignment: torch.Tensor, p_count: int,
+                      mesh: DataMesh | None = None):
     """(objective (P,), episodes (P,)): the mean true_reward of each
-    policy's agents at episode ends this rollout, and their count."""
+    policy's agents at episode ends this rollout (every rank's envs on a
+    `mesh`), and their count."""
     done = infos["episode_done"]                          # (T, E)
     hot = torch.nn.functional.one_hot(assignment, p_count).to(torch.float32)
     w = done[:, :, None, None].to(torch.float32) * hot    # (T, E, N, P)
     tr = infos["true_reward"].to(torch.float32)
-    episodes = w.sum((0, 1, 2))
-    obj = torch.einsum("tenp,ten->p", w, tr) / torch.clamp(episodes, min=1.0)
-    return obj, episodes
+    sums = {"episodes": w.sum((0, 1, 2)),
+            "reward": torch.einsum("tenp,ten->p", w, tr)}
+    sums = all_sum_dict(mesh, sums)
+    episodes = sums["episodes"]
+    return sums["reward"] / torch.clamp(episodes, min=1.0), episodes
 
 
 def mixed_train_iteration(env_cfg: EnvConfig, dyn_params,
                           heads: StackedPolicies, optimizer,
                           ppo_cfg: PPOConfig, env_states, obs, assignment,
-                          replay_states, norm, coeff_table, gen):
+                          replay_states, norm, coeff_table, gen,
+                          mesh: DataMesh | None = None,
+                          learner_gen: torch.Generator | None = None):
     """One shared rollout, GAE, the per-policy normalizer updates, then
-    minibatch SGD with the same minibatch order for every policy.  Returns
-    (env_states', obs', assignment', replay_states', norm', metrics,
-    infos, seconds)."""
+    minibatch SGD with the same minibatch order for every policy (drawn
+    from `learner_gen`, `gen` by default).  On a `mesh` the rank's envs
+    and the mesh's learner.  Returns (env_states', obs', assignment',
+    replay_states', norm', metrics, infos, seconds)."""
     t0 = time.perf_counter()
     (env_states, replay_states, obs, assignment, traj, last_value,
      infos) = mixed_rollout(env_cfg, dyn_params, heads, ppo_cfg, env_states,
@@ -375,24 +430,26 @@ def mixed_train_iteration(env_cfg: EnvConfig, dyn_params,
                                  or norm.ret is not None):
             norm = update_masked_stacked(
                 norm, traj.obs.reshape(-1, traj.obs.shape[-1]),
-                returns.reshape(-1), traj.assignment.reshape(-1))
-    dims = tuple(traj.reward.shape)
+                returns.reshape(-1), traj.assignment.reshape(-1), mesh)
+    t_dim, e_dim, n_dim = traj.reward.shape
+    world, rank = (mesh.world, mesh.rank) if mesh is not None else (1, 0)
+    dims = (t_dim, e_dim * world, n_dim)
     tree = (traj.obs, traj.actions, traj.log_prob, traj.value, advantages,
             returns, traj.assignment)
     losses = None
     for _ in range(ppo_cfg.num_epochs):
         batched = shuffled_minibatches(
-            tree, dims, ppo_cfg.batch_size, gen,
-            groups=max(ppo_cfg.sgd_shuffle_groups, 1))
+            tree, dims, ppo_cfg.batch_size, learner_gen or gen,
+            groups=max(ppo_cfg.sgd_shuffle_groups, 1), shard=(rank, world))
         for i in range(batched[0].shape[0]):
             mb = tuple(x[i] for x in batched)
             losses = stacked_sgd_step(heads, optimizer, ppo_cfg, mb[:6],
-                                      mb[6], norm)
+                                      mb[6], norm, mesh)
     obj, episodes = policy_objectives(infos, traj.assignment,
-                                      heads.num_policies)
-    metrics = {"loss": losses, "reward_mean": torch.mean(
-        traj.reward.float()), "pbt/objective": obj,
-        "pbt/episodes": episodes}
+                                      heads.num_policies, mesh)
+    metrics = {"loss": losses,
+               "reward_mean": all_mean(mesh, torch.mean(traj.reward.float())),
+               "pbt/objective": obj, "pbt/episodes": episodes}
     _sync(obs.device)
     seconds = {"rollout": t1 - t0, "learner": time.perf_counter() - t1}
     return (env_states, obs, assignment, replay_states, norm, metrics, infos,
@@ -406,13 +463,24 @@ def mixed_train_iteration(env_cfg: EnvConfig, dyn_params,
 class MixedPBTRunner:
     """P policies in one env batch; periodic rank-replace-mutate.
     `make_model()` builds one policy's model with fresh weights; it is
-    called under `torch.manual_seed(seed + 1000 p)` for policy p."""
+    called under `torch.manual_seed(seed + 1000 p)` for policy p.  On a
+    `mesh` (the job's whole world by default) each rank holds E / D envs;
+    every rank takes the same decisions, and the caller saves on rank 0
+    alone."""
 
     def __init__(self, env_cfg: EnvConfig, ppo_cfg: PPOConfig,
                  make_model: Callable, dyn_params, pbt_cfg: PBTConfig,
                  seed: int = 0, exp_dir: str = "train_dir/pbt_mixed",
-                 base_rew_coeff: dict | None = None, device="cuda"):
+                 base_rew_coeff: dict | None = None, device="cuda",
+                 mesh: DataMesh | None = None):
         self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else make_mesh(
+            device=self.device)
+        world = self.mesh.world
+        ppo_cfg = resolve_groups(ppo_cfg, world)
+        check_layout((ppo_cfg.rollout, ppo_cfg.num_envs, env_cfg.num_agents),
+                     ppo_cfg.batch_size, ppo_cfg.sgd_shuffle_groups, world)
+        lo, hi = env_range(self.mesh, ppo_cfg.num_envs)
         self.env_cfg, self.ppo_cfg, self.dyn_params = env_cfg, ppo_cfg, \
             dyn_params
         self.pbt_cfg, self.exp_dir = pbt_cfg, exp_dir
@@ -424,13 +492,17 @@ class MixedPBTRunner:
             torch.manual_seed(seed + 1000 * p)
             models.append(make_model())
         self.heads = StackedPolicies(models)
+        replicate(self.mesh, list(self.heads.params.values())
+                  + list(self.heads.buffers.values()))
         self.optimizer = make_stacked_optimizer(self.heads, ppo_cfg)
-        self.gen = torch.Generator(self.device).manual_seed(seed)
+        self.gen = torch.Generator(self.device).manual_seed(
+            rank_seed(seed, self.mesh.rank))
+        self.learner_gen = (self.gen if world == 1 else torch.Generator(
+            self.device).manual_seed(learner_seed(seed)))
         self.env_states, self.obs = env_reset(
-            env_cfg, dyn_params, self.gen, ppo_cfg.num_envs,
-            device=self.device)
+            env_cfg, dyn_params, self.gen, hi - lo, device=self.device)
         self.assignment = torch.randint(
-            0, p_count, (ppo_cfg.num_envs, env_cfg.num_agents),
+            0, p_count, (hi - lo, env_cfg.num_agents),
             generator=self.gen, device=self.device)
         base = dict(base_rew_coeff) if base_rew_coeff else dict(
             quadcol_bin=5.0, quadcol_bin_smooth_max=10.0, quadcol_bin_obst=5.0)
@@ -477,7 +549,7 @@ class MixedPBTRunner:
                 self.env_cfg, self.dyn_params, self.heads, self.optimizer,
                 self.ppo_cfg, self.env_states, self.obs, self.assignment,
                 self.replay_states, self.norm_state, self.coeff_table(),
-                self.gen)
+                self.gen, self.mesh, self.learner_gen)
         self.env_steps += (self.ppo_cfg.rollout * self.ppo_cfg.num_envs
                            * self.env_cfg.num_agents)
         obj, eps = torch.stack([metrics["pbt/objective"],

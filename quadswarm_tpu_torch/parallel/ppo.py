@@ -1,4 +1,4 @@
-"""Synchronous PPO over batched envs on one device.
+"""Synchronous PPO over batched envs, on one card or a mesh of ranks.
 
 Port of quadswarm_tpu/parallel/ppo.py.  An iteration collects a rollout of
 `PPOConfig.rollout` ticks (policy forward + env step, through collision
@@ -10,8 +10,18 @@ The JAX package runs an iteration as one jitted program over a device mesh;
 here the rollout is a Python loop over ticks (one device-to-host sync a
 tick, for the episode ends and the replay branches) and the learner a
 Python loop over minibatches with no sync at all: losses stay on the device
-until the caller reads them.  One device, no mesh: `sgd_shuffle_groups`
-resolves to 1.
+until the caller reads them.
+
+On a mesh of D ranks (`parallel/mesh.py`, one process a card) each rank
+rolls out its own E / D envs from its own generator, and the learner is
+the JAX package's on a sharded batch: every rank draws the same chunk
+permutations of the global minibatch layout (`sgd_shuffle_groups` resolves
+to 32, D must divide the group count) and takes its own groups' rows; the
+advantages are standardized over the global minibatch and the normalizers
+fold in the global batch (all-reduced sums); the gradients are averaged in
+one flat all-reduce before the global-norm clip, so every rank takes the
+same Adam step and the weights stay equal bit for bit.  On one card
+`sgd_shuffle_groups` resolves to 1.
 
 Defaults mirror the 8-drone baseline: lr=1e-4, gamma=0.99, gae_lambda=1.0,
 ppo_clip=0.1, clip_value=5.0, rollout=128, batch_size=1024,
@@ -24,6 +34,7 @@ import math
 import time
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from quadswarm_tpu_torch.env.multi import (
@@ -36,6 +47,10 @@ from quadswarm_tpu_torch.env.reward import RewardCoeffs
 from quadswarm_tpu_torch.models.actor_critic import (
     ActorCritic, apply_fused, gaussian_entropy, gaussian_log_prob,
     sample_actions,
+)
+from quadswarm_tpu_torch.parallel.mesh import (
+    DataMesh, all_mean, all_reduce_grads_, all_sum, all_sum_dict, env_range,
+    make_mesh, replicate, world_size,
 )
 from quadswarm_tpu_torch.parallel.normalize import (
     NormalizerState, denormalize_value, make_norm_state, normalize_obs,
@@ -72,14 +87,55 @@ class PPOConfig:
     # The JAX package's XLA unroll factor for its SGD scan: accepted, no
     # effect here.
     sgd_unroll: int = 1
-    # Env groups of the minibatch layout (`shuffled_minibatches`); 0 = auto,
-    # which is 1 on one device, the only layout the port runs.
+    # Env groups of the minibatch layout (`shuffled_minibatches`); 0 = auto:
+    # 1 on one rank, 32 on a mesh (whose world must divide the groups).
     sgd_shuffle_groups: int = 0
     normalize_input: bool = False
     normalize_returns: bool = False
 
     def replace(self, **changes) -> "PPOConfig":
         return dataclasses.replace(self, **changes)
+
+
+# The learner's metrics, in the order a mesh reduces them.
+METRIC_KEYS = ("loss", "pg_loss", "v_loss", "entropy", "approx_kl",
+               "reward_mean")
+
+
+def rank_seed(seed: int, rank: int) -> int:
+    """The seed of rank `rank`'s generator: `seed` itself on rank 0, so
+    rank 0 of any world draws what the one-card trainer draws; another
+    stream of (seed, rank) elsewhere."""
+    if rank == 0:
+        return seed
+    return int(np.random.SeedSequence(seed, spawn_key=(1, rank))
+               .generate_state(1, np.uint64)[0])
+
+
+def learner_seed(seed: int) -> int:
+    """The seed of the learner's generator, the same on every rank."""
+    return int(np.random.SeedSequence(seed, spawn_key=(0,))
+               .generate_state(1, np.uint64)[0])
+
+
+def resolve_groups(ppo_cfg: "PPOConfig", world: int) -> "PPOConfig":
+    """`sgd_shuffle_groups` 0 (auto) as the JAX Trainer resolves it: 1 on
+    one rank, 32 on a mesh."""
+    if ppo_cfg.sgd_shuffle_groups:
+        return ppo_cfg
+    return ppo_cfg.replace(sgd_shuffle_groups=1 if world == 1 else 32)
+
+
+def check_layout(dims: tuple, batch_size: int, groups: int,
+                 world: int) -> None:
+    """Raise unless a world of `world` ranks can share the global layout:
+    each rank holds whole env groups."""
+    lay = minibatch_layout(dims, batch_size, groups)
+    if lay.groups % world:
+        raise ValueError(
+            f"the minibatch layout of {dims} at batch {batch_size} has "
+            f"{lay.groups} env groups (sgd_shuffle_groups={groups}), which "
+            f"{world} ranks do not divide")
 
 
 class Transition(NamedTuple):
@@ -165,11 +221,24 @@ def compute_gae(traj: Transition, last_value, gamma: float, lam: float):
     return advantages, advantages + traj.value
 
 
+def advantage_stats(advantages: torch.Tensor, mesh: DataMesh | None = None):
+    """(mean, population std) of a minibatch's advantages: the mean, then
+    the mean square about it (two passes, as `jnp.std`).  On a mesh the
+    minibatch is every rank's rows (equal in number): the sums are
+    all-reduced."""
+    count = advantages.numel() * world_size(mesh)
+    mean = all_sum(mesh, advantages.sum()) / count
+    var = all_sum(mesh, torch.sum((advantages - mean) ** 2)) / count
+    return mean, torch.sqrt(var)
+
+
 def ppo_loss(model: ActorCritic, ppo_cfg: PPOConfig, batch,
-             norm: NormalizerState | None = None):
+             norm: NormalizerState | None = None,
+             mesh: DataMesh | None = None):
     """(loss, metrics) of one minibatch: clipped surrogate, clipped value
     loss, entropy bonus.  Advantages are standardized over the minibatch
-    with the population std.  Metrics are detached scalar tensors."""
+    with the population std (over every rank's rows on a `mesh`).  Metrics
+    are detached scalar tensors."""
     obs, actions, old_log_prob, old_value, advantages, returns = batch
     mean, log_std, value = apply_fused(model, normalize_obs(norm, obs))
     # the loss in float32 whatever the model's compute dtype
@@ -181,8 +250,8 @@ def ppo_loss(model: ActorCritic, ppo_cfg: PPOConfig, batch,
         old_value = norm.ret.normalize(old_value, clip=None)
     log_prob = gaussian_log_prob(mean, log_std, actions)
     ratio = torch.exp(log_prob - old_log_prob)
-    adv = (advantages - advantages.mean()) / (
-        advantages.std(correction=0) + 1e-8)
+    adv_mean, adv_std = advantage_stats(advantages, mesh)
+    adv = (advantages - adv_mean) / (adv_std + 1e-8)
     clip = ppo_cfg.ppo_clip_ratio
     pg_loss = -torch.mean(torch.minimum(
         ratio * adv, torch.clamp(ratio, 1.0 - clip, 1.0 + clip) * adv))
@@ -250,7 +319,8 @@ def minibatch_layout(dims: tuple, batch_size: int,
 
 def shuffled_minibatches(tree, dims: tuple, batch_size: int,
                          gen: torch.Generator | None, groups: int = 1,
-                         perms: torch.Tensor | None = None):
+                         perms: torch.Tensor | None = None,
+                         shard: tuple = (0, 1)):
     """Chunk-shuffled minibatches: each leaf (T, E, N, ...) becomes
     (num_minibatches, batch, ...).
 
@@ -261,16 +331,26 @@ def shuffled_minibatches(tree, dims: tuple, batch_size: int,
     minibatch takes the same number of chunks from each group, in the
     order of an independent permutation per group: `perms` (g, num_chunks)
     int, or drawn from `gen`.  A leaf is copied once, by one indexed read
-    of its chunk grid (twice when g > 1)."""
+    of its chunk grid (twice when g > 1).
+
+    `shard` (rank, world): `dims` are the global (T, E, N) and the leaves
+    hold the rank's E / world envs, whole groups of the global layout.
+    The permutations are the global layout's (every rank draws all g of
+    them alike) and the rank takes its own groups' rows: its part of each
+    global minibatch, batch / world rows."""
     t_dim = dims[0]
     lay = minibatch_layout(dims, batch_size, groups)
     g, nmb = lay.groups, lay.num_minibatches
+    rank, world = shard
+    if g % world:
+        raise ValueError(f"{world} ranks do not divide {g} env groups")
     dev = tree[0].device
     if perms is None:
         perms = torch.stack([torch.randperm(lay.num_chunks, generator=gen,
                                             device=dev) for _ in range(g)])
+    g //= world
     perms = perms.to(device=dev, dtype=torch.long)[
-        :, : nmb * lay.chunks_per_minibatch]
+        rank * g:(rank + 1) * g, : nmb * lay.chunks_per_minibatch]
     gi = torch.arange(g, device=dev)[:, None]
     tiles_per_row = lay.series // lay.sb
 
@@ -312,47 +392,75 @@ def clip_by_global_norm_(grads: list, max_norm: float) -> torch.Tensor:
     return g_norm
 
 
-def apply_gradients(model: ActorCritic, optimizer, max_grad_norm: float):
-    """Clip the model's gradients by their global norm, then step Adam."""
+def apply_gradients(model: ActorCritic, optimizer, max_grad_norm: float,
+                    mesh: DataMesh | None = None):
+    """Average the gradients over the `mesh` (one flat all-reduce), clip
+    them by their global norm, then step Adam."""
     grads = [p.grad for p in model.parameters() if p.grad is not None]
+    all_reduce_grads_(mesh, grads)
     clip_by_global_norm_(grads, max_grad_norm)
     optimizer.step()
+
+
+def mean_metrics(metrics: dict, mesh: DataMesh | None) -> dict:
+    """Scalar metrics averaged over the mesh in one all-reduce (each rank's
+    are means over as many rows, so this is the global mean)."""
+    if mesh is None or not mesh.distributed:
+        return metrics
+    return {k: v / mesh.world for k, v in all_sum_dict(mesh, metrics).items()}
 
 
 def sgd_epochs(model: ActorCritic, optimizer, ppo_cfg: PPOConfig,
                traj: Transition, advantages, returns,
                gen: torch.Generator | None,
-               norm: NormalizerState | None = None, perms=None) -> dict:
+               norm: NormalizerState | None = None, perms=None,
+               mesh: DataMesh | None = None) -> dict:
     """Shuffled minibatch SGD over the (T, E, N) trajectory, num_epochs
     passes.  `perms`: one (g, num_chunks) chunk permutation per epoch
-    (else drawn from `gen`).  Returns the last minibatch's metrics."""
-    dims = tuple(traj.reward.shape)
+    (else drawn from `gen`).  On a `mesh` the trajectory is the rank's
+    envs, the layout the global batch's (`shuffled_minibatches`' shard).
+    Returns the last minibatch's metrics, averaged over the mesh;
+    `sgd_epochs.rows` is the number of samples this call fed the loss."""
+    t_dim, e_dim, n_dim = traj.reward.shape
+    world, rank = (mesh.world, mesh.rank) if mesh is not None else (1, 0)
+    dims = (t_dim, e_dim * world, n_dim)
     tree = (traj.obs, traj.actions, traj.log_prob, traj.value, advantages,
             returns)
-    metrics = {}
+    metrics, rows = {}, 0
     for epoch in range(ppo_cfg.num_epochs):
         batched = shuffled_minibatches(
             tree, dims, ppo_cfg.batch_size, gen,
             groups=max(ppo_cfg.sgd_shuffle_groups, 1),
-            perms=None if perms is None else perms[epoch])
+            perms=None if perms is None else perms[epoch],
+            shard=(rank, world))
         for i in range(batched[0].shape[0]):
             loss, metrics = ppo_loss(model, ppo_cfg,
-                                     tuple(x[i] for x in batched), norm)
+                                     tuple(x[i] for x in batched), norm,
+                                     mesh)
             optimizer.zero_grad(set_to_none=True)
             loss.backward()
-            apply_gradients(model, optimizer, ppo_cfg.max_grad_norm)
-    return metrics
+            apply_gradients(model, optimizer, ppo_cfg.max_grad_norm, mesh)
+            rows += batched[0].shape[1]
+    sgd_epochs.rows = rows
+    return mean_metrics(metrics, mesh)
+
+
+sgd_epochs.rows = 0
 
 
 def train_iteration(env_cfg: EnvConfig, dyn_params, model: ActorCritic,
                     optimizer, ppo_cfg: PPOConfig, env_states: EnvState, obs,
                     gen: torch.Generator, rew_coeff: RewardCoeffs,
                     replay_states=None,
-                    norm_state: NormalizerState | None = None):
+                    norm_state: NormalizerState | None = None,
+                    mesh: DataMesh | None = None,
+                    learner_gen: torch.Generator | None = None):
     """Rollout, GAE (with the rollout-time normalizer), normalizer update,
     then minibatch SGD.  Returns (env_states', obs', replay_states',
     metrics, infos, norm_state', seconds), where seconds is the host time
-    of the rollout and of the learner, split at a device sync."""
+    of the rollout and of the learner, split at a device sync.  On a
+    `mesh` the rollout is the rank's envs and the learner the mesh's;
+    `learner_gen` draws the minibatch order (`gen` by default)."""
     t0 = time.perf_counter()
     env_states, obs, replay_states, traj, last_value, infos = collect_rollout(
         env_cfg, dyn_params, model, ppo_cfg, env_states, obs, gen, rew_coeff,
@@ -364,18 +472,28 @@ def train_iteration(env_cfg: EnvConfig, dyn_params, model: ActorCritic,
                                           ppo_cfg.gae_lambda)
         # The normalizers fold in the rollout before SGD; GAE above used
         # the rollout-time stats.
-        if norm_state is not None and norm_state.obs is not None:
-            norm_state = norm_state.replace(obs=norm_state.obs.update(
-                traj.obs.reshape(-1, traj.obs.shape[-1])))
-        if norm_state is not None and norm_state.ret is not None:
-            norm_state = norm_state.replace(ret=norm_state.ret.update(returns))
+        norm_state = update_normalizers(norm_state, traj, returns, mesh)
     metrics = sgd_epochs(model, optimizer, ppo_cfg, traj, advantages,
-                         returns, gen, norm=norm_state)
-    metrics["reward_mean"] = torch.mean(traj.reward)
+                         returns, learner_gen or gen, norm=norm_state,
+                         mesh=mesh)
+    metrics["reward_mean"] = all_mean(mesh, torch.mean(traj.reward))
     _sync(obs.device)
     seconds = {"rollout": t1 - t0, "learner": time.perf_counter() - t1}
     return (env_states, obs, replay_states, metrics, infos, norm_state,
             seconds)
+
+
+def update_normalizers(norm_state: NormalizerState | None, traj: Transition,
+                       returns, mesh: DataMesh | None = None):
+    """Fold a rollout's observations and GAE returns into the normalizers
+    that are on (the global batch on a mesh)."""
+    if norm_state is not None and norm_state.obs is not None:
+        norm_state = norm_state.replace(obs=norm_state.obs.update(
+            traj.obs.reshape(-1, traj.obs.shape[-1]), mesh))
+    if norm_state is not None and norm_state.ret is not None:
+        norm_state = norm_state.replace(ret=norm_state.ret.update(returns,
+                                                                  mesh))
+    return norm_state
 
 
 def _sync(device: torch.device) -> None:
@@ -384,24 +502,48 @@ def _sync(device: torch.device) -> None:
 
 
 class Trainer:
-    """Host-side orchestration on one device: env and replay state, the
-    model and its optimizer, normalizers, reward-coefficient annealing.
-    The model comes with its weights; `seed` seeds the trainer's generator
-    (env resets, actions, replay, minibatch order)."""
+    """Host-side orchestration on one card or one rank of a mesh: env and
+    replay state, the model and its optimizer, normalizers,
+    reward-coefficient annealing.  The model comes with its weights (rank
+    0's are broadcast); `seed` seeds the trainer's generator (env resets,
+    actions, replay; on one rank the minibatch order too).
+
+    `mesh`: the ranks that train together (`parallel/mesh.py`; by default
+    the job's whole world, one rank without a process group).  Each rank
+    holds `num_envs / world` envs; `num_envs`, `batch_size`, `env_steps`
+    and `step` stay global.  Rank r's generator is seeded with
+    `rank_seed(seed, r)` and, on a world of more than one, the minibatch
+    order comes from a learner generator seeded alike on every rank.
+    `holds` names the halves of an iteration this rank holds, "env"
+    (the env batch, replay, rollout) and "learner" (the optimizer):
+    both, but on an APPO split (`parallel/appo.py`)."""
 
     def __init__(self, env_cfg: EnvConfig, ppo_cfg: PPOConfig,
                  model: ActorCritic, dyn_params, seed: int = 0,
                  anneal_schedules: dict | None = None,
-                 base_rew_coeff: dict | None = None, device="cuda"):
+                 base_rew_coeff: dict | None = None, device="cuda",
+                 mesh: DataMesh | None = None,
+                 holds: tuple = ("env", "learner")):
         self.device = resolve_device(device)
         if next(model.parameters()).device.type != self.device.type:
             raise ValueError(f"the model is on {next(model.parameters()).device}"
                              f", the trainer on {self.device}")
+        self.mesh = mesh if mesh is not None else make_mesh(
+            device=self.device)
+        world = self.mesh.world
+        ppo_cfg = resolve_groups(ppo_cfg, world)
+        dims = (ppo_cfg.rollout, ppo_cfg.num_envs, env_cfg.num_agents)
+        lo, hi = env_range(self.mesh, ppo_cfg.num_envs)
+        if "learner" in holds:
+            check_layout(dims, ppo_cfg.batch_size,
+                         ppo_cfg.sgd_shuffle_groups, world)
         self.env_cfg = env_cfg
         self.ppo_cfg = ppo_cfg
         self.model = model
         self.dyn_params = dyn_params
-        self.optimizer = make_optimizer(model, ppo_cfg)
+        replicate(self.mesh, model)
+        self.optimizer = (make_optimizer(model, ppo_cfg)
+                          if "learner" in holds else None)
         self.step = 0                 # optimizer steps taken
         self.env_steps = 0
         self.anneal_schedules = anneal_schedules or {}
@@ -410,16 +552,27 @@ class Trainer:
         # baseline's values.
         self.base_rew_coeff = dict(base_rew_coeff) if base_rew_coeff else dict(
             quadcol_bin=5.0, quadcol_bin_smooth_max=10.0, quadcol_bin_obst=5.0)
-        self.gen = torch.Generator(self.device).manual_seed(seed)
+        self.gen = torch.Generator(self.device).manual_seed(
+            rank_seed(seed, self.mesh.rank))
+        self.learner_gen = (self.gen if world == 1 else torch.Generator(
+            self.device).manual_seed(learner_seed(seed)))
         self.norm_state = make_norm_state(
             ppo_cfg.normalize_input, ppo_cfg.normalize_returns,
             env_cfg.obs_dim, device=self.device)
-        self.env_states, self.obs = env_reset(
-            env_cfg, dyn_params, self.gen, ppo_cfg.num_envs,
-            device=self.device)
-        self.replay_states = (init_replay_state(self.env_states)
-                              if ppo_cfg.replay_sample_prob > 0.0 else None)
+        self.env_states = self.obs = self.replay_states = None
+        if "env" in holds:
+            self.env_states, self.obs = env_reset(
+                env_cfg, dyn_params, self.gen, hi - lo, device=self.device)
+            self.replay_states = (
+                init_replay_state(self.env_states)
+                if ppo_cfg.replay_sample_prob > 0.0 else None)
         self.seconds = {}
+
+    @property
+    def writes(self) -> bool:
+        """Whether this rank writes the checkpoints: rank 0 of the mesh
+        that holds the optimizer."""
+        return self.mesh.is_main and self.optimizer is not None
 
     def set_ppo_cfg(self, ppo_cfg: PPOConfig) -> None:
         """Swap the trainer's hyperparameters (the next iteration reads
@@ -442,7 +595,8 @@ class Trainer:
          self.norm_state, self.seconds) = train_iteration(
             self.env_cfg, self.dyn_params, self.model, self.optimizer,
             self.ppo_cfg, self.env_states, self.obs, self.gen,
-            self.current_rew_coeff(), self.replay_states, self.norm_state)
+            self.current_rew_coeff(), self.replay_states, self.norm_state,
+            self.mesh, self.learner_gen)
         lay = minibatch_layout(
             (self.ppo_cfg.rollout, self.ppo_cfg.num_envs,
              self.env_cfg.num_agents), self.ppo_cfg.batch_size)
@@ -452,9 +606,10 @@ class Trainer:
         return metrics, infos
 
     def episode_stats(self, infos) -> dict:
-        """Episode stats of a rollout's infos: reduced on the device, only
-        the sums reach the host."""
-        sums = episode_stat_sums(infos)
+        """Episode stats of a rollout's infos: reduced on the device (and
+        summed over the mesh, a collective every rank calls), only the
+        sums reach the host."""
+        sums = all_sum_dict(self.mesh, episode_stat_sums(infos))
         return stats_from_sums({k: v.cpu().numpy() for k, v in sums.items()})
 
     def train(self, total_env_steps: int, log_every: int = 10, logger=None):

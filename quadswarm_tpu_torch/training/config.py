@@ -5,8 +5,8 @@ and choices (the reference's `--quads_*` flags plus the Sample Factory
 training flags its baselines set), so the command lines of `train.sh`,
 `train_local_obst.sh` and the run files (`runs/`) parse unchanged, plus
 `--device` (default `cuda`);
-with `evaluation=True` also the eval CLI's flags.  Flags of paths the port
-does not run yet raise NotImplementedError naming their ROADMAP.md item,
+with `evaluation=True` also the eval CLI's flags.  Settings the port does
+not run (`--quads_use_pallas=false` on the card, recurrent policies) raise
 rather than train something else.
 """
 from __future__ import annotations
@@ -17,7 +17,6 @@ import os
 import warnings
 
 # ROADMAP.md Queue 1 items of the paths not ported yet.
-_NOT_PORTED = "is not ported yet (ROADMAP.md Queue 1 item {})"
 
 
 def str2bool(v):
@@ -114,7 +113,11 @@ def add_training_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", default="cuda", type=str,
                    help="the device to train on; cpu runs the kernels' "
                         "plain versions")
-    p.add_argument("--multi_host", default=False, type=str2bool)
+    p.add_argument("--multi_host", default=False, type=str2bool,
+                   help="one job over every rank of a torch.distributed "
+                        "world (torchrun's variables, or the JAX package's "
+                        "JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / "
+                        "JAX_PROCESS_ID), one rank a card")
     p.add_argument("--seed", default=0, type=int)
     p.add_argument("--train_for_env_steps", default=1_000_000_000, type=int)
     p.add_argument("--num_envs", default=0, type=int,
@@ -157,7 +160,9 @@ def add_training_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--sgd_unroll", default=8, type=int,
                    help="accepted (an XLA knob of the JAX package)")
     # APPO
-    p.add_argument("--appo_split_devices", default="", type=str)
+    p.add_argument("--appo_split_devices", default="", type=str,
+                   help="R,L: APPO's rollout on ranks 0..R-1 and its "
+                        "learner on the next L, a world of R + L ranks")
     p.add_argument("--async_rl", default=False, type=str2bool)
     p.add_argument("--policy_lag", default=1, type=int)
     p.add_argument("--with_vtrace", default=False, type=str2bool)
@@ -273,16 +278,27 @@ def _resolve_compat_flags(args) -> argparse.Namespace:
                          "on the card, which the port does not run: its "
                          "dynamics on CUDA go through the kernel K1 (auto, "
                          "true); --device=cpu runs the plain version")
-    refused = (
-        # the JAX CLI parses it without a check
-        ("--appo_split_devices (APPO's rollout and learner on disjoint "
-         "devices)", bool(args.appo_split_devices), 14),
-        ("--multi_host", args.multi_host, 14),
-    )
-    for what, on, item in refused:
-        if on:
-            raise NotImplementedError(f"{what} " + _NOT_PORTED.format(item))
+    if args.appo_split_devices:
+        # the JAX CLI reads it without a check
+        try:
+            split = tuple(int(x) for x in args.appo_split_devices.split(","))
+        except ValueError:
+            split = ()
+        if len(split) != 2 or min(split) < 1:
+            raise ValueError("--appo_split_devices takes R,L: two positive "
+                             "rank counts, got "
+                             f"{args.appo_split_devices!r}")
+        if not args.async_rl:
+            warnings.warn("--appo_split_devices has no effect without "
+                          "--async_rl=True")
     return args
+
+
+def appo_split_from_args(args) -> tuple | None:
+    """(R, L) of --appo_split_devices, or None."""
+    if not args.appo_split_devices:
+        return None
+    return tuple(int(x) for x in args.appo_split_devices.split(","))
 
 
 def base_rew_coeff_from_args(args) -> dict:

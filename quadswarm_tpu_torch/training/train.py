@@ -23,6 +23,14 @@ The last two resume from the experiment's latest checkpoint, log windowed
 `metrics.jsonl`, keep a `best` checkpoint by the windowed mean of the
 episode `true_reward`, and save every --save_every_sec seconds and at exit.
 
+`--multi_host=True` trains one job over a torch.distributed world, one
+rank a card (`parallel/distributed.py`), every branch on the same mesh:
+    torchrun --nproc_per_node=<cards> -m quadswarm_tpu_torch.training.train \
+        --multi_host=True <train.sh's flags>
+`--num_envs` and `--batch_size` stay global.  Every rank loads a
+checkpoint on resume; rank 0 logs, and the rank that holds the optimizer's
+first copy writes (rank 0, or rank R under `--appo_split_devices=R,L`).
+
 Example (the 8-drone mix baseline):
     python -m quadswarm_tpu_torch.training.train \\
         --train_for_env_steps=1000000000 --num_envs=1024 --rollout=128 \\
@@ -48,10 +56,12 @@ def main(argv=None) -> int:
     from quadswarm_tpu_torch.parallel.appo import APPOTrainer
     from quadswarm_tpu_torch.parallel.pbt import PBTRunner
     from quadswarm_tpu_torch.parallel.ppo import Trainer
+    from quadswarm_tpu_torch.parallel.mesh import make_mesh
     from quadswarm_tpu_torch.training.config import (
-        anneal_schedules_from_args, base_rew_coeff_from_args,
-        env_config_from_args, model_from_args, parse_swarm_cfg,
-        pbt_config_from_args, ppo_config_from_args, save_cfg,
+        anneal_schedules_from_args, appo_split_from_args,
+        base_rew_coeff_from_args, env_config_from_args, model_from_args,
+        parse_swarm_cfg, pbt_config_from_args, ppo_config_from_args,
+        save_cfg,
     )
     from quadswarm_tpu_torch.utils.checkpoint import (
         checkpoint_dir, latest_checkpoint, load_checkpoint, save_checkpoint,
@@ -60,9 +70,20 @@ def main(argv=None) -> int:
     from quadswarm_tpu_torch.utils.struct import resolve_device
 
     args = parse_swarm_cfg(argv)
+    if args.multi_host:
+        # before anything touches the card: each rank takes its own
+        from quadswarm_tpu_torch.parallel.distributed import init_distributed
+        init_distributed(device=args.device)
     device = resolve_device(args.device)
+    mesh = make_mesh(device=device)
+    is_main = mesh.is_main          # the only rank that logs and prints
+    if args.multi_host:
+        print(f"multi-host: process {mesh.rank}/{mesh.world}, "
+              f"{mesh.world} ranks on {mesh.device}", flush=True)
+    device = mesh.device
     exp_dir = os.path.join(args.train_dir, args.experiment)
-    save_cfg(args, exp_dir)
+    if is_main:
+        save_cfg(args, exp_dir)
 
     env_cfg = env_config_from_args(args)
     ppo_cfg = ppo_config_from_args(args)
@@ -72,13 +93,14 @@ def main(argv=None) -> int:
     if args.with_pbt and args.num_policies > 1:
         if args.pbt_mix_policies_in_one_env:
             return _train_mixed(args, env_cfg, ppo_cfg, dyn, base_coeff,
-                                exp_dir, device)
+                                exp_dir, mesh)
         runner = PBTRunner(env_cfg, ppo_cfg,
                            lambda: model_from_args(args, env_cfg,
                                                    device=device),
                            dyn, pbt_config_from_args(args), seed=args.seed,
                            anneal_schedules=anneal, exp_dir=exp_dir,
-                           base_rew_coeff=base_coeff, device=device)
+                           base_rew_coeff=base_coeff, device=device,
+                           mesh=mesh)
         runner.train(args.train_for_env_steps)
         return 0
 
@@ -88,11 +110,13 @@ def main(argv=None) -> int:
         trainer = APPOTrainer(env_cfg, ppo_cfg, model, dyn, seed=args.seed,
                               anneal_schedules=anneal,
                               policy_lag=args.policy_lag,
-                              base_rew_coeff=base_coeff, device=device)
+                              base_rew_coeff=base_coeff, device=device,
+                              mesh=mesh,
+                              split_mesh=appo_split_from_args(args))
     else:
         trainer = Trainer(env_cfg, ppo_cfg, model, dyn, seed=args.seed,
                           anneal_schedules=anneal, base_rew_coeff=base_coeff,
-                          device=device)
+                          device=device, mesh=mesh)
     cp_dir = checkpoint_dir(args.train_dir, args.experiment)
     cp = latest_checkpoint(cp_dir)
     if cp is not None:
@@ -103,18 +127,21 @@ def main(argv=None) -> int:
             # the JAX CLI keeps the fresh weights in its behaviour queue
             # here, so its first rollouts after a resume use them
             trainer.restart_behavior_queue()
-        print(f"resumed from {cp} at {trainer.env_steps} env steps",
-              flush=True)
+        if is_main:
+            print(f"resumed from {cp} at {trainer.env_steps} env steps",
+                  flush=True)
 
     def save(tag="checkpoint", keep=3):
-        save_checkpoint(cp_dir, trainer.model, trainer.optimizer, trainer.step,
-                        trainer.env_steps, keep=keep, tag=tag,
-                        extra=trainer.norm_state)
+        if trainer.writes:
+            save_checkpoint(cp_dir, trainer.model, trainer.optimizer,
+                            trainer.step, trainer.env_steps, keep=keep,
+                            tag=tag, extra=trainer.norm_state)
 
     logger = MetricLogger(
         exp_dir, use_wandb=args.with_wandb,
         wandb_kwargs=dict(project=args.wandb_project, entity=args.wandb_user,
-                          group=args.wandb_group, name=args.experiment))
+                          group=args.wandb_group, name=args.experiment)
+    ) if is_main else None
     if args.debug_checks:
         torch.autograd.set_detect_anomaly(True)
     last_save = time.time()
@@ -128,7 +155,7 @@ def main(argv=None) -> int:
         while trainer.env_steps < args.train_for_env_steps:
             metrics, infos = trainer.iteration()
             it += 1
-            if args.profile_dir and it == 1:
+            if args.profile_dir and it == 1 and is_main:
                 # from the second iteration on: the first holds the warm-up
                 profiler = torch.profiler.profile(activities=[
                     torch.profiler.ProfilerActivity.CPU] + (
@@ -159,11 +186,12 @@ def main(argv=None) -> int:
                 if "recompute" in trainer.seconds:          # APPO's learner
                     m["perf/recompute_s"] = trainer.seconds["recompute"]
                 last_t, last_steps = now, trainer.env_steps
-                logger.log(trainer.env_steps, m)
-                print(f"steps={trainer.env_steps:,} "
-                      f"sps={m['perf/sps']:,.0f} "
-                      f"loss={m['loss']:.4f} rew={m['reward_mean']:.4f}",
-                      flush=True)
+                if is_main:
+                    logger.log(trainer.env_steps, m)
+                    print(f"steps={trainer.env_steps:,} "
+                          f"sps={m['perf/sps']:,.0f} "
+                          f"loss={m['loss']:.4f} "
+                          f"rew={m['reward_mean']:.4f}", flush=True)
             if time.time() - last_save > args.save_every_sec:
                 save()
                 last_save = time.time()
@@ -172,12 +200,13 @@ def main(argv=None) -> int:
             profiler.stop()
             _export_trace(profiler, args.profile_dir)
         save()
-        logger.close()
+        if logger is not None:
+            logger.close()
     return 0
 
 
 def _train_mixed(args, env_cfg, ppo_cfg, dyn, base_coeff, exp_dir,
-                 device) -> int:
+                 mesh) -> int:
     """The mixed-policy PBT branch, in the JAX CLI's order."""
     from quadswarm_tpu_torch.parallel.pbt_mixed import MixedPBTRunner
     from quadswarm_tpu_torch.training.config import (
@@ -194,20 +223,21 @@ def _train_mixed(args, env_cfg, ppo_cfg, dyn, base_coeff, exp_dir,
     pbt_cfg = pbt_config_from_args(args)
     runner = MixedPBTRunner(
         env_cfg, ppo_cfg, lambda: model_from_args(args, env_cfg,
-                                                  device=device),
+                                                  device=mesh.device),
         dyn, pbt_cfg, seed=args.seed, exp_dir=exp_dir,
-        base_rew_coeff=base_coeff, device=device)
-    if runner.restore(args.train_dir, args.experiment):
+        base_rew_coeff=base_coeff, device=mesh.device, mesh=mesh)
+    is_main = mesh.is_main
+    if runner.restore(args.train_dir, args.experiment) and is_main:
         print(f"resumed mixed PBT at {runner.env_steps} env steps",
               flush=True)
-    logger = MetricLogger(exp_dir)
+    logger = MetricLogger(exp_dir) if is_main else None
     it, last_round = 0, 0
     last_save = time.time()
     try:
         while runner.env_steps < args.train_for_env_steps:
             metrics, _ = runner.iteration()
             it += 1
-            if it % args.log_every_iters == 0:
+            if it % args.log_every_iters == 0 and is_main:
                 m = {f"policy{p}/loss": float(v)
                      for p, v in enumerate(metrics["loss"].tolist())}
                 m["reward_mean"] = float(metrics["reward_mean"])
@@ -224,12 +254,13 @@ def _train_mixed(args, env_cfg, ppo_cfg, dyn, base_coeff, exp_dir,
                     >= pbt_cfg.period_env_steps):
                 last_round = runner.env_steps
                 runner.pbt_round()
-            if time.time() - last_save > args.save_every_sec:
+            if time.time() - last_save > args.save_every_sec and is_main:
                 runner.save(args.train_dir, args.experiment)
                 last_save = time.time()
     finally:
-        runner.save(args.train_dir, args.experiment)
-        logger.close()
+        if is_main:
+            runner.save(args.train_dir, args.experiment)
+            logger.close()
     return 0
 
 
@@ -241,4 +272,7 @@ def _export_trace(profiler, profile_dir: str) -> None:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    code = main()
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
+    sys.exit(code)

@@ -60,7 +60,9 @@ class _TapeRandom:
     the way jax.random.uniform maps its bits); key handling is real."""
 
     def __init__(self, draws):
-        self.draws = [np.asarray(d) for d in draws]
+        # traced draws (a jitted reference) stay as they are
+        self.draws = [d if isinstance(d, jax.Array) else np.asarray(d)
+                      for d in draws]
 
     def split(self, key, num=2):
         return jax.random.split(key, num)

@@ -35,7 +35,7 @@ from quadswarm_tpu_torch.utils.struct import leaves
 from .test_torch_env_parts import (
     _jax_state, assert_matches_jax, jax_tree_numpy,
 )
-from .test_torch_slice import _draws, _jax_step, _torch
+from .test_torch_slice import _draws, _torch, jitted_jax_step
 
 E, N, K = 2, 8, 2
 ENV_KW = dict(num_agents=N, quads_mode="mix", neighbor_obs_type="pos_vel",
@@ -304,14 +304,15 @@ def test_pairs_route_lockstep_with_jax(jax_start):
     tcfg = t_multi.EnvConfig(**ENV_KW, use_pallas_pairs=True)
     tparams = t_make_params()
     tstate = env_state_from_numpy(jax_tree_numpy(jstate))
+    jax_step = jitted_jax_step(jcfg, jparams)
     rng = np.random.default_rng(0)
     new_pairs = []
     for _ in range(3):
         actions = rng.uniform(-1, 1, (E, N, 4)).astype(np.float32)
         draws = _draws(rng)
         before = np.asarray(jstate.prev_coll_pairs)
-        jstate, jobs, jrew, jdones, jinfo = _jax_step(
-            jcfg, jparams, jstate, jnp.asarray(actions), draws)
+        jstate, jobs, jrew, jdones, jinfo = jax_step(
+            jstate, jnp.asarray(actions), draws)
         tstate, tobs, trew, tdones, tinfo = t_multi.batched_env_step(
             tcfg, tparams, tstate, torch.from_numpy(actions), None,
             _torch(draws))

@@ -197,9 +197,18 @@ def _jax_step(jcfg, jparams, jstate, actions, draws):
     return new_state, obs, rew, dones, info
 
 
+def jitted_jax_step(jcfg, jparams):
+    """`_jax_step` compiled once for a config and its parameters (which the
+    JAX env reads as constants): the state, actions and draws are traced
+    arguments, so the tapes hand the compiled program its inputs."""
+    return jax.jit(lambda state, actions, draws: _jax_step(
+        jcfg, jparams, state, actions, draws))
+
+
 def test_slice_lockstep_with_jax(start):
     jcfg, jparams, jstate, jobs, jmodel, jpolicy, tmodel = start
     j_policy = jax.jit(lambda p, o: j_ac.apply_fused(jmodel, p, o))
+    jax_step = jitted_jax_step(jcfg, jparams)
     tcfg = t_multi.EnvConfig(**ENV_KW)
     tparams = t_make_params()
     tstate = env_state_from_numpy(jax_tree_numpy(jstate))
@@ -222,8 +231,8 @@ def test_slice_lockstep_with_jax(start):
             np.testing.assert_allclose(g.reshape(w.shape).numpy(),
                                        np.asarray(w), **TOL)
         draws = _draws(rng)
-        jstate, jobs, jrew, jdones, jinfo = _jax_step(
-            jcfg, jparams, jstate, jactions, draws)
+        jstate, jobs, jrew, jdones, jinfo = jax_step(jstate, jactions,
+                                                     draws)
         tstate, tobs, trew, tdones, tinfo = t_multi.batched_env_step(
             tcfg, tparams, tstate, tactions.reshape(E, N, 4), None,
             _torch(draws))
@@ -264,12 +273,13 @@ def test_per_drone_fleet_lockstep_with_jax(start, control_mode):
     jcfg = jcfg0.replace(control_mode=control_mode)
     tcfg = t_multi.EnvConfig(**ENV_KW, control_mode=control_mode)
     tstate = env_state_from_numpy(jax_tree_numpy(jstate))
+    jax_step = jitted_jax_step(jcfg, jparams)
     rng = np.random.default_rng(5)
     for _ in range(3):
         actions = rng.uniform(-1, 1, (E, N, 4)).astype(np.float32)
         draws = _draws(rng)
-        jstate, jobs, jrew, _, _ = _jax_step(jcfg, jparams, jstate,
-                                             jnp.asarray(actions), draws)
+        jstate, jobs, jrew, _, _ = jax_step(jstate, jnp.asarray(actions),
+                                            draws)
         tstate, tobs, trew, _, _ = t_multi.batched_env_step(
             tcfg, tparams, tstate, torch.from_numpy(actions), None,
             _torch(draws))

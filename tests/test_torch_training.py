@@ -346,11 +346,10 @@ def test_train_sh_flags_parse_alike_in_both_packages(script):
 
 @pytest.mark.parametrize("extra,error", [
     (["--quads_use_pallas=false"], ValueError),
-    (["--async_rl=True", "--appo_split_devices=1,1"], NotImplementedError),
-    (["--multi_host=True"], NotImplementedError),
+    (["--async_rl=True", "--appo_split_devices=2"], ValueError),
 ])
 def test_flags_of_paths_not_ported_are_refused(extra, error):
-    with pytest.raises(error, match="item 14|plain"):
+    with pytest.raises(error, match="plain|R,L"):
         t_config.parse_swarm_cfg(_train_sh_flags() + extra)
 
 
@@ -358,14 +357,19 @@ def test_flags_of_paths_not_ported_are_refused(extra, error):
     ["--quads_mode=o_swap_goals"], ["--quads_mode=run_away"],
     ["--with_pbt=True", "--num_policies=4",
      "--pbt_mix_policies_in_one_env=True"],
-    ["--dtype=bfloat16"], ["--model_dtype=bfloat16"]],
+    ["--dtype=bfloat16"], ["--model_dtype=bfloat16"],
+    ["--async_rl=True", "--appo_split_devices=1,1"], ["--multi_host=True"]],
     ids=["o_swap_goals", "run_away", "pbt_mixed", "dtype_bf16",
-         "model_dtype_bf16"])
+         "model_dtype_bf16", "appo_split", "multi_host"])
 def test_flags_of_ported_paths_parse(extra):
     """Flags the CLI refused before their paths were ported parse into an
     env config and a model that run them: scenario modes, mixed-policy
-    PBT, the bfloat16 env and the bfloat16 model."""
+    PBT, the bfloat16 env and the bfloat16 model, APPO's split and the
+    multi-rank job."""
     args = t_config.parse_swarm_cfg(_train_sh_flags() + extra)
+    assert t_config.appo_split_from_args(args) == (
+        (1, 1) if "--appo_split_devices=1,1" in extra else None)
+    assert args.multi_host == ("--multi_host=True" in extra)
     env = t_config.env_config_from_args(args)
     env.check_supported()
     if "--quads_mode" in extra[0]:
