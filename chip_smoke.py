@@ -104,7 +104,27 @@ Phases, each raising on failure:
      heads on the card against the CPU, K1 on the state reached; the CLI's
      mixed branch at a small width, 8 checkpoints and pbt_state.json, and
      a resume;
- 16. dist: training on more than one rank, each world in processes of its
+ 16. tools: the last modules at full model width.  (a) sim2real: one
+     iteration (--rollout=16) of runs/single_quad_baseline and of the
+     final obstacle run with --quads_sim2real=True through the train CLI,
+     each exported by the sim2real CLI, built with g++ -O2 and loaded with
+     ctypes: networkEvaluate on 1,000 observations against the port's
+     mean action on the card (atol 1e-4, TF32 off), the C's size and the
+     g++ seconds; (b) `checked_env_step` at train.sh's env, 1024 x 8: 10
+     healthy ticks with one sync and one K1 launch each, then a NaN in one
+     drone's position raises; (c) the weight recycler on train.sh's actor's
+     self encoder at B = 8,192 with 16 units silenced: the mask equal to
+     the CPU's, the recycled layer exact; (d) `episode_attention` with
+     train.sh's model over a whole episode (1,500 ticks, K1 once a tick,
+     rows summing to 1, a zero diagonal); (e) the eval CLI's single-env
+     loop with train.sh's flags, --render_mode=plot
+     --visualize_v_value=True, one 5 s episode (cut from 15; K1 once a
+     tick), the episode's and the rendering's seconds apart; without
+     matplotlib the CLI's refusal, then --render_mode=dump and the value
+     maps' batched critic forward on the recording; (f)
+     analysis/profile_train at 1024 x 8 x 128, batch 1024, --iters 1: its
+     three JSON lines beside the train phase's iterations;
+ 17. dist: training on more than one rank, each world in processes of its
      own started with torchrun's variables and train.sh's flags plus
      --multi_host=True, as the train CLI starts: (a) a 1-rank NCCL world at
      full width (1024 x 8 x 128) for 2 iterations in turns with the
@@ -1096,7 +1116,8 @@ def phase_profile(card: str, trace: str | None, path: str) -> None:
         return
     if path in ("train", "bf16", "final"):
         tr = _flagship_trainer(argv={
-            "train": None, "final": _final_run_flags(),
+            "train": None,
+            "final": _run_flags("obstacles.quads_multi_obstacles"),
             "bf16": train_sh_flags() + ["--model_dtype=bfloat16",
                                         "--dtype=bfloat16"]}[path])
         tr.set_ppo_cfg(tr.ppo_cfg.replace(rollout=t))
@@ -1538,14 +1559,14 @@ def _train_flagship(card: str) -> tuple:
         raise AssertionError(f"annealing {trainer.anneal_schedules}")
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("TF32 is on")
-    total, _, infos = _iterations(card, "train", trainer, TRAIN_ITERS)
+    total, walls, infos = _iterations(card, "train", trainer, TRAIN_ITERS)
     stats = trainer.episode_stats(infos)
     print(f"[{card}] train: {trainer.env_steps:,} env steps, "
           f"{trainer.step} optimizer steps, collision coefficient "
           f"{trainer.current_rew_coeff().quadcol_bin:.5g}, "
           f"{int(stats.get('num_episodes', 0))} episodes ended in the last "
           "rollout")
-    return total, trainer.env_states, cfg, trainer.dyn_params
+    return total, trainer.env_states, cfg, trainer.dyn_params, walls
 
 
 def _replay_draws(e: int, n: int, gen, obstacles: bool = False) -> dict:
@@ -1816,10 +1837,10 @@ def phase_train(card: str, train_dir: str) -> tuple:
     """The training path: the flagship Trainer (the main path), collision
     replay on the card against the CPU on both routes, the learner on the
     card against the CPU, and the CLI with a resume into `train_dir`.
-    Returns the main path's launch counts and its K1 check on the state it
-    reached."""
+    Returns the main path's launch counts, its K1 check on the state it
+    reached and its iterations' wall times."""
     t0 = time.perf_counter()
-    counts, states, cfg, params = _train_flagship(card)
+    counts, states, cfg, params, walls = _train_flagship(card)
     check = check_on_env_state(card, "train state", states, cfg, params)
     del states
     _replay_agree(card, "dense route (K1)", {**FLAGSHIP_ENV}, 16)
@@ -1828,7 +1849,7 @@ def phase_train(card: str, train_dir: str) -> tuple:
     _learner_agree(card)
     _cli_twice(card, train_dir)
     print(f"[{card}] train phase: {time.perf_counter() - t0:.1f} s")
-    return counts, check
+    return counts, check, walls
 
 
 # ---------------------------------------------------------------------------
@@ -2085,14 +2106,16 @@ def _run_file_code(path, swap: bool) -> str:
     return ast.dump(tree)
 
 
-def _final_run_flags() -> list:
-    """The first command of runs/obstacles/quads_multi_obstacles (the final
-    obstacle run) as CLI flags."""
+def _run_flags(module: str) -> list:
+    """The first command of a port run file (`runs/obstacles/
+    quads_multi_obstacles` is the final obstacle run) as CLI flags, without
+    its experiment and train dir."""
+    import importlib
     import shlex
-    from quadswarm_tpu_torch.runs.obstacles import quads_multi_obstacles
-
-    (_, cmd), *_ = quads_multi_obstacles.RUN_DESCRIPTION.commands("td")
-    return shlex.split(cmd)[3:]
+    run = importlib.import_module(f"quadswarm_tpu_torch.runs.{module}")
+    (_, cmd), *_ = run.RUN_DESCRIPTION.commands("td")
+    return [w for w in shlex.split(cmd)[3:]
+            if not w.startswith(("--experiment=", "--train_dir="))]
 
 
 def _run_commands(card: str) -> dict:
@@ -3678,6 +3701,551 @@ def phase_dist(card: str) -> dict:
             "dist-appo-split-1+1": split[0]["counts"]}
 
 
+# ---------------------------------------------------------------------------
+# The tools: sim2real, debug checks, weight recycler, attention, rendering,
+# profile_train
+# ---------------------------------------------------------------------------
+
+TOOLS_ROLLOUT = 16        # the sim2real sources' training depth, cut from 128
+# The C forward against the card's: float32 both, TF32 off; the C sums in
+# order, cuBLAS in blocks, and a 256-wide actor's layers sum up to 768
+# products, so the 1e-5 / 2e-5 of the width-16 tests become 1e-4.
+S2R_ATOL = 1e-4
+S2R_ROWS = 1000
+RECYCLE_B = 8192
+RECYCLE_DORMANT = 16      # units of the self encoder's first layer silenced
+RENDER_EPISODE_S = 5.0    # the render episode, cut from train.sh's 15 s
+PROFILE_ARGS = ["--num_envs=1024", "--num_agents=8", "--rollout=128",
+                "--batch_size=1024", "--iters=1"]
+# profile_train's rollouts: one for the SGD phase's trajectory, then the
+# delta method's warm-up, 1 and 1 + iters; and as many full iterations
+PROFILE_ROLLOUTS = 5
+PROFILE_ITERATIONS = 4
+
+
+def _c_actor(src: str, workdir: str):
+    """g++ -O2 -shared -fPIC of an exported source, loaded with ctypes;
+    returns (evaluate(obs) -> (B, 4) numpy, g++ seconds)."""
+    import ctypes
+    import os
+    import numpy as np
+
+    lib_path = os.path.join(workdir, os.path.basename(src) + ".so")
+    t0 = time.perf_counter()
+    subprocess.run(["g++", "-O2", "-shared", "-fPIC", "-o", lib_path, src],
+                   check=True, capture_output=True, timeout=300)
+    secs = time.perf_counter() - t0
+    lib = ctypes.CDLL(lib_path)
+
+    class control(ctypes.Structure):        # the C's control_t_n
+        _fields_ = [(f"thrust_{i}", ctypes.c_float) for i in range(4)]
+
+    lib.networkEvaluate.argtypes = [ctypes.POINTER(control),
+                                    ctypes.POINTER(ctypes.c_float)]
+    lib.networkEvaluate.restype = None
+
+    def evaluate(obs):
+        out = np.zeros((obs.shape[0], 4), np.float32)
+        for i, row in enumerate(obs.astype(np.float32)):
+            ctrl = control()
+            lib.networkEvaluate(ctypes.byref(ctrl),
+                                (ctypes.c_float * row.size)(*row))
+            out[i] = [getattr(ctrl, f"thrust_{j}") for j in range(4)]
+        return out
+    return evaluate, secs
+
+
+def _together(commands: dict, timeout: int = 600) -> dict:
+    """Python modules of the port, each in its own process, all started
+    together (they share the card); name -> its wall seconds.  Raises if
+    one exits non-zero."""
+    import os
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent
+    env = {**os.environ, "PYTHONPATH": str(root)}
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-m", *argv], cwd=root, env=env, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+        for name, argv in commands.items()}
+    secs = {}
+    try:
+        for name, proc in procs.items():
+            _, err = proc.communicate(timeout=timeout)
+            secs[name] = time.perf_counter() - t0
+            if proc.returncode:
+                raise AssertionError(f"{name} exited {proc.returncode}: "
+                                     f"{err[-2000:]}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return secs
+
+
+def _tools_sim2real(card: str, train_dir: str) -> None:
+    """(a) One training iteration (--rollout=16) of each sim2real source
+    through the train CLI (both processes at once), the sim2real CLI's
+    export (both at once), a g++ build, and networkEvaluate on S2R_ROWS
+    observations against the port's mean action on the card."""
+    import os
+    import numpy as np
+    import torch
+    from quadswarm_tpu_torch.training import config as C
+    from quadswarm_tpu_torch.utils.checkpoint import latest_checkpoint
+
+    sources = {
+        "single": ("single_quad_baseline", _run_flags("single_quad_baseline")),
+        "attention": ("final obstacle run, --quads_sim2real=True",
+                      _run_flags("obstacles.quads_multi_obstacles")
+                      + ["--quads_sim2real=True"]),
+    }
+    exp_dir = {t: os.path.join(train_dir, f"s2r_{t}") for t in sources}
+    out_dir = {t: os.path.join(train_dir, f"c_{t}") for t in sources}
+    trains = {}
+    for model_type, (_, flags) in sources.items():
+        args = C.parse_swarm_cfg(flags)
+        steps = TOOLS_ROLLOUT * args.num_envs * args.quads_num_agents
+        trains[model_type] = ["quadswarm_tpu_torch.training.train", *flags,
+                              f"--rollout={TOOLS_ROLLOUT}",
+                              f"--train_for_env_steps={steps}",
+                              f"--train_dir={train_dir}",
+                              f"--experiment=s2r_{model_type}",
+                              "--with_wandb=False"]
+    train_s = _together(trains)
+    export_s = _together({t: [
+        "quadswarm_tpu_torch.sim2real.codegen", "--model_dir", exp_dir[t],
+        "--output_dir", out_dir[t], "--model_type", t, "--testing", "True"]
+        for t in sources}, timeout=300)
+    for model_type, (label, _) in sources.items():
+        src = os.path.join(out_dir[model_type], "model.c")
+        evaluate, gxx_s = _c_actor(src, out_dir[model_type])
+        cfg = C.load_cfg(exp_dir[model_type])
+        env_cfg = C.env_config_from_args(cfg)
+        model = C.model_from_args(cfg, env_cfg, device="cuda")
+        model.load_state_dict(torch.load(
+            latest_checkpoint(os.path.join(exp_dir[model_type],
+                                           "checkpoint_p0")),
+            map_location="cuda", weights_only=True)["model"])
+        obs = np.random.default_rng(7).uniform(
+            -1, 1, (S2R_ROWS, env_cfg.obs_dim)).astype(np.float32)
+        t0 = time.perf_counter()
+        c_out = evaluate(obs)
+        c_s = time.perf_counter() - t0
+        with torch.no_grad():
+            mean, _, _ = model(torch.from_numpy(obs).cuda())
+        err = float(np.abs(c_out - mean.cpu().numpy()).max())
+        if not err <= S2R_ATOL:
+            raise AssertionError(f"sim2real {model_type}: the C actor is "
+                                 f"{err:.3g} from the card's (atol "
+                                 f"{S2R_ATOL})")
+        size = sum(p.numel() for p in model.actor_encoder.parameters()) + \
+            sum(p.numel() for p in model.action_head.parameters())
+        print(f"[{card}] sim2real {model_type} ({label}; obs "
+              f"{env_cfg.obs_dim} wide, actor {size:,} parameters): train "
+              f"CLI 1 iteration at --rollout={TOOLS_ROLLOUT} in "
+              f"{train_s[model_type]:.1f} s (a process, beside the other "
+              f"model type's); export CLI {export_s[model_type]:.2f} s (the "
+              f"same), C source {os.path.getsize(src):,} bytes; g++ -O2 "
+              f"{gxx_s:.2f} s; networkEvaluate on {S2R_ROWS} observations "
+              f"{c_s * 1e3 / S2R_ROWS:.3f} ms each on the host; largest "
+              f"difference from the port's mean action on the card "
+              f"{err:.3g} (atol {S2R_ATOL}, TF32 off)")
+
+
+def _tools_debug(card: str) -> None:
+    """(b) checked_env_step at train.sh's env, 1024 x 8: healthy ticks pass
+    with one sync each; a NaN written into one drone's position raises."""
+    import torch
+    from quadswarm_tpu_torch.env.multi import env_reset
+    from quadswarm_tpu_torch.env.params import make_dynamics_params
+    from quadswarm_tpu_torch.training import config as C
+    from quadswarm_tpu_torch.utils.debug import checked_env_step
+
+    args = C.parse_swarm_cfg(train_sh_flags())
+    cfg = C.env_config_from_args(args)
+    params = make_dynamics_params(dt=cfg.dt)
+    gen = torch.Generator("cuda").manual_seed(3)
+    e, ticks = args.num_envs, 10
+    states, _ = env_reset(cfg, params, gen, e, device="cuda")
+    step = checked_env_step(cfg, params)
+    acts = torch.zeros((e, cfg.num_agents, 4), device="cuda")
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    with SyncCounter() as syncs:
+        for _ in range(ticks):
+            err, (states, *_) = step(states, acts, gen)
+            err.throw()
+    wall = time.perf_counter() - t0
+    counts = _read_counts()
+    if counts != _counts(K1=ticks) or syncs.implicit != ticks:
+        raise AssertionError(f"checked step: launches {counts}, "
+                             f"{syncs.implicit} syncs in {ticks} ticks at "
+                             f"{syncs.where}")
+    pos = states.dyn.pos.clone()
+    pos[e // 2, 3, 1] = float("nan")
+    err, _ = step(states.replace(dyn=states.dyn.replace(pos=pos)), acts, gen)
+    try:
+        err.throw()
+    except ValueError as raised:
+        message = str(raised)
+    else:
+        raise AssertionError("checked step: a NaN position did not raise")
+    if "Debug this!" not in message:
+        raise AssertionError(f"checked step raised {message!r}")
+    nan_fields = _k1_keeps_nan(cfg, params, states.replace(
+        dyn=states.dyn.replace(pos=pos)))
+    print(f"[{card}] debug checked_env_step at {e}x{cfg.num_agents}: "
+          f"{ticks} healthy ticks passed in {wall:.3f} s "
+          f"({wall / ticks * 1e3:.2f} ms a tick), K1 launches {counts['K1']}, "
+          f"{syncs.implicit} device-to-host syncs "
+          f"({syncs.implicit / ticks:.0f} a tick: the finiteness checks and "
+          f"the auto-reset's test in one read); a NaN in env {e // 2} "
+          f"drone 3's position raised "
+          f"ValueError({message!r}); K1 on that state keeps the NaN where "
+          f"its plain version does ({nan_fields}), the other entries within "
+          f"{TRAJ_TOL}")
+
+
+def _k1_keeps_nan(cfg, params, states) -> str:
+    """K1 against its plain version on a state with a NaN position, at
+    hover thrust: NaN in the same entries, the rest within TRAJ_TOL.
+    Returns the fields with a NaN.  The launch does not count."""
+    import torch
+    from quadswarm_tpu_torch.ops.kernels import dynamics_kernel as dk
+    from quadswarm_tpu_torch.utils.struct import leaves, map_fields
+
+    dyn = map_fields(lambda x: x.reshape((-1,) + x.shape[2:]), states.dyn)
+    b = dyn.pos.shape[0]
+    cmds = torch.full((b, 4), 0.5, device="cuda")
+    ou = torch.zeros((b, 4), device="cuda")
+    yaw = torch.zeros((b,), device="cuda")
+    dcfg = cfg.dynamics_config(params.arm)
+    before = dk.dynamics_tick_fused.launches
+    got = dk.dynamics_tick_fused(params, dcfg, dyn, cmds, ou, yaw)
+    dk.dynamics_tick_fused.launches = before
+    want = dk.dynamics_tick_flat(params, dcfg, dyn, cmds, ou, yaw)
+    with_nan = []
+    for (name, g), (_, w) in zip(leaves(got), leaves(want)):
+        if not g.is_floating_point():
+            continue
+        if not torch.equal(torch.isnan(g), torch.isnan(w)):
+            raise AssertionError(f"K1 {name}: NaN in {int(g.isnan().sum())} "
+                                 f"entries, the plain version in "
+                                 f"{int(w.isnan().sum())}")
+        if bool(w.isnan().any()):
+            with_nan.append(name)
+        if not torch.allclose(g, w, equal_nan=True, **TRAJ_TOL):
+            raise AssertionError(f"K1 {name} on a NaN state: "
+                                 f"{float((g - w).abs().nan_to_num().max())}"
+                                 " from the plain version")
+    if "pos" not in with_nan:
+        raise AssertionError("K1 on a NaN state: no NaN position")
+    return ", ".join(with_nan)
+
+
+def _tools_recycler(card: str) -> None:
+    """(c) The weight recycler on the flagship actor's self encoder: scores
+    of its first layer over RECYCLE_B observations, the mask against the
+    CPU's on the same activations, a recycle on the card."""
+    import torch
+    from quadswarm_tpu_torch.models import weight_recycler as R
+    from quadswarm_tpu_torch.training import config as C
+
+    args = C.parse_swarm_cfg(train_sh_flags())
+    env_cfg = C.env_config_from_args(args)
+    torch.manual_seed(args.seed)
+    model = C.model_from_args(args, env_cfg, device="cuda")
+    first, second = model.actor_encoder.self_encoder.layers[:2]
+    with torch.no_grad():       # silence some units: they become dormant
+        first.weight[:RECYCLE_DORMANT] = 0.0
+        first.bias[:RECYCLE_DORMANT] = 0.0
+    gen = torch.Generator("cuda").manual_seed(4)
+    obs = torch.randn((RECYCLE_B, env_cfg.obs_dim), generator=gen,
+                      device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        act = torch.tanh(first(obs[:, :model.actor_encoder.self_obs_dim]))
+        score = R.estimate_neuron_score(act, normalize=True)
+        mask = R.dormant_mask(act)
+        w_in, b_in, w_out = R.recycle_dense_pair(
+            gen, first.weight, first.bias, second.weight, mask)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cpu_mask = R.dormant_mask(act.cpu())
+    if not torch.equal(mask.cpu(), cpu_mask):
+        raise AssertionError("recycler: the card's mask differs from the "
+                             "CPU's")
+    n = int(mask.sum())
+    if n != RECYCLE_DORMANT:
+        raise AssertionError(f"recycler: {n} dormant units, expected "
+                             f"{RECYCLE_DORMANT}")
+    keep = ~mask
+    if not (bool((b_in[mask] == 0).all()) and bool((w_out[:, mask] == 0)
+                                                   .all())
+            and torch.equal(w_in[keep], first.weight[keep])
+            and torch.equal(w_out[:, keep], second.weight[:, keep])):
+        raise AssertionError("recycler: the recycled layer is not exact")
+    fan_in = first.weight.shape[1]
+    fresh = w_in[mask]
+    std = float(fresh.std()) / math.sqrt(1.0 / fan_in)
+    bound = 2 * math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    if not float(fresh.abs().max()) <= bound:
+        raise AssertionError("recycler: a fresh weight beyond 2 std")
+    print(f"[{card}] weight recycler on the flagship actor's self encoder "
+          f"(first layer {tuple(first.weight.shape)}, B={RECYCLE_B}): "
+          f"{n} dormant of {mask.numel()} (the {RECYCLE_DORMANT} silenced), "
+          f"the mask equal to the CPU's on the same activations, zeroed "
+          f"rows and biases exact, untouched units equal; fresh weights' std "
+          f"{std:.3f} x sqrt(1/fan_in) (fan_in {fan_in}); smallest live "
+          f"score {float(score[keep].min()):.3g}; scored and recycled in "
+          f"{wall * 1e3:.2f} ms (first call)")
+
+
+def _tools_attention(card: str, train_dir: str) -> dict:
+    """(d) episode_attention with the flagship model over a whole episode
+    on the card; returns its launch counts."""
+    import importlib.util
+    import os
+    import numpy as np
+    import torch
+    from quadswarm_tpu_torch.analysis.attention import (
+        episode_attention, plot_heatmap,
+    )
+    from quadswarm_tpu_torch.env.params import make_dynamics_params
+    from quadswarm_tpu_torch.training import config as C
+
+    args = C.parse_swarm_cfg(train_sh_flags())
+    env_cfg = C.env_config_from_args(args)
+    torch.manual_seed(args.seed)
+    model = C.model_from_args(args, env_cfg, device="cuda")
+    gen = torch.Generator("cuda").manual_seed(5)
+    dyn = make_dynamics_params(dt=env_cfg.dt)
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    with SyncCounter() as syncs:
+        mat = episode_attention(env_cfg, dyn, model, gen, device="cuda")
+    wall = time.perf_counter() - t0
+    counts = _read_counts()
+    n, ticks = env_cfg.num_agents, env_cfg.ep_len
+    if counts != _counts(K1=ticks):
+        raise AssertionError(f"attention: launches {counts} in {ticks} "
+                             "ticks")
+    if mat.shape != (n, n) or not np.allclose(mat.sum(1), 1.0, atol=1e-12) \
+            or np.any(np.diag(mat) != 0):
+        raise AssertionError(f"attention: not row-stochastic with a zero "
+                             f"diagonal: {mat}")
+    where = "not drawn (matplotlib is not installed here)"
+    if importlib.util.find_spec("matplotlib") is not None:
+        out = os.path.join(train_dir, "attn_heatmap.png")
+        plot_heatmap(mat, out)
+        where = f"drawn, {os.path.getsize(out):,} bytes"
+    print(f"[{card}] attention heat-map (train.sh's model, "
+          f"{n} drones, {env_cfg.num_use_neighbor_obs} neighbours, 256 wide, "
+          f"weights from seed {args.seed}): {ticks} ticks of one env in "
+          f"{wall:.2f} s ({wall / ticks * 1e3:.2f} ms a tick); K1 launches "
+          f"{counts['K1']}; {syncs.implicit} implicit device-to-host syncs "
+          f"(by site {dict(syncs.by_site.most_common(4))}); "
+          f"rows sum to 1, diagonal 0, largest weight {mat.max():.4f}; the "
+          f"heat-map {where}")
+    return counts
+
+
+def _tools_render(card: str, train_dir: str) -> dict:
+    """(e) The eval CLI's single-env loop with train.sh's flags,
+    --render_mode=plot --visualize_v_value=True, one episode of
+    RENDER_EPISODE_S s (cut from 15).  Without matplotlib the CLI refuses
+    plot up front; the same loop then runs with --render_mode=dump and
+    the value panels' batched critic forward is timed on the recording.
+    Returns the episode's launch counts."""
+    import contextlib
+    import importlib.util
+    import io
+    import os
+    import torch
+    from quadswarm_tpu_torch.models.actor_critic import ActorCritic
+    from quadswarm_tpu_torch.training import config as C
+    from quadswarm_tpu_torch.training import enjoy
+
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    out_dir = os.path.join(train_dir, "render")
+    argv = train_sh_flags() + [
+        f"--train_dir={train_dir}", "--experiment=eval_src",
+        "--eval_envs=1", "--max_num_episodes=1", "--visualize_v_value=True",
+        f"--quads_episode_duration={RENDER_EPISODE_S}",
+        f"--render_out={out_dir}"]
+    log = io.StringIO()
+    if not has_mpl:
+        with contextlib.redirect_stdout(log):
+            args = enjoy.load_args(argv + ["--render_mode=plot"])
+        try:
+            enjoy.evaluate(args)
+        except ImportError as e:
+            print(f"[{card}] render: matplotlib is not installed on this "
+                  f"machine; the eval CLI refuses --render_mode=plot before "
+                  f"the episode ({e}); running --render_mode=dump instead")
+        else:
+            raise AssertionError("plot ran without matplotlib")
+    mode = "plot" if has_mpl else "dump"
+    with contextlib.redirect_stdout(log):
+        args = enjoy.load_args(argv + [f"--render_mode={mode}"])
+    cfg = C.env_config_from_args(args)
+    forwards = []            # the rows of each actor-critic forward
+
+    def hook(module, inp, out):
+        if isinstance(module, ActorCritic):
+            forwards.append(inp[0].shape[0])
+
+    handle = torch.nn.modules.module.register_module_forward_hook(hook)
+    try:
+        return _render_episode(card, args, cfg, out_dir, log, has_mpl, mode,
+                               forwards)
+    finally:
+        handle.remove()
+
+
+def _render_episode(card: str, args, cfg, out_dir: str, log, has_mpl: bool,
+                    mode: str, forwards: list) -> dict:
+    """The render episode of `_tools_render`, its checks and its line;
+    `forwards` collects the rows of each actor-critic forward."""
+    import contextlib
+    import os
+    import numpy as np
+    import torch
+    from quadswarm_tpu_torch.training import enjoy
+    from quadswarm_tpu_torch.utils.render import v_value_maps
+
+    ticks = cfg.ep_len + 1
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        result = enjoy.evaluate(args)
+    wall = time.perf_counter() - t0
+    counts = _read_counts()
+    if counts != _counts(K1=ticks):
+        raise AssertionError(f"render: launches {counts} in {ticks} ticks")
+    episode_s, render_s = result.round_seconds[0], result.render_seconds[0]
+    rec = result.recorder
+    frame_ticks = list(range(0, len(rec.obs), 10))
+    if has_mpl:
+        frames = sorted(f for f in os.listdir(os.path.join(out_dir, "ep000"))
+                        if f.startswith("frame_"))
+        if len(frames) != len(frame_ticks):
+            raise AssertionError(f"render: {len(frames)} frames")
+        drawn = f"{len(frames)} frames written"
+        maps_note = "inside the rendering"
+    else:
+        obs_seq = np.stack([rec.obs[t] for t in frame_ticks])
+        model = _render_model(args, cfg)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        maps = v_value_maps(model, obs_seq)
+        maps_s = time.perf_counter() - t1
+        if len(maps) != len(frame_ticks) or not all(
+                np.isfinite(m).all() for m in maps.values()):
+            raise AssertionError("render: value maps")
+        drawn = ("no frames (matplotlib missing); written: "
+                 + ", ".join(sorted(os.listdir(out_dir))
+                             + sorted(os.listdir(os.path.join(out_dir,
+                                                              "ep000")))))
+        maps_note = (f"{len(frame_ticks)} maps of 30x30 in one forward of "
+                     f"{len(frame_ticks) * 900:,} rows in {maps_s:.3f} s")
+    batched = [b for b in forwards if b > cfg.num_agents]
+    print(f"[{card}] render: eval CLI single-env loop, train.sh's flags, "
+          f"--render_mode={mode} --visualize_v_value=True, one episode of "
+          f"{RENDER_EPISODE_S} s (cut from 15): {ticks} ticks in "
+          f"{episode_s:.2f} s ({episode_s / ticks * 1e3:.2f} ms a tick, the "
+          f"recorder reads every tick); rendering after it {render_s:.2f} s "
+          f"({drawn}); value maps {maps_note}; critic forwards wider than "
+          f"the policy's {len(batched)} ({batched}); K1 launches "
+          f"{counts['K1']}; call {wall:.2f} s")
+    return counts
+
+
+def _render_model(args, cfg):
+    """The eval CLI's model with its checkpoint, on the card."""
+    import torch
+    from quadswarm_tpu_torch.training import config as C
+    from quadswarm_tpu_torch.training.enjoy import choose_checkpoint
+    torch.manual_seed(args.seed)
+    model = C.model_from_args(args, cfg, device="cuda")
+    cp = choose_checkpoint(args)
+    if cp is not None:
+        model.load_state_dict(torch.load(cp, map_location="cuda",
+                                         weights_only=True)["model"])
+    return model
+
+
+def _tools_profile(card: str, train_walls: list) -> dict:
+    """(f) analysis/profile_train at 1024 x 8 x 128, batch 1024, --iters 1;
+    returns its launch counts."""
+    import contextlib
+    import io
+    import torch
+    from quadswarm_tpu_torch.analysis import profile_train
+
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        results = profile_train.main(PROFILE_ARGS)
+    wall = time.perf_counter() - t0
+    counts = _read_counts()
+    want = 128 * (PROFILE_ROLLOUTS + PROFILE_ITERATIONS)
+    if counts != _counts(K1=want):
+        raise AssertionError(f"profile_train: launches {counts}, expected "
+                             f"K1 {want}")
+    if [r["phase"] for r in results] != ["rollout", "gae+sgd",
+                                         "full_iteration"]:
+        raise AssertionError(f"profile_train printed {results}")
+    for line in out.getvalue().splitlines():
+        print(f"[{card}] profile_train {line}")
+    halves = results[0]["ms_per_iter"] + results[1]["ms_per_iter"]
+    walls = ", ".join(f"{w:.3f}" for w in train_walls)
+    beside = (f"the train phase's iterations {walls} s (train.sh's Trainer, "
+              "with annealing and downwash)" if train_walls
+              else "no train phase in this run")
+    print(f"[{card}] profile_train ({' '.join(PROFILE_ARGS)}): "
+          f"full_iteration {results[2]['ms_per_iter'] / 1e3:.3f} s beside "
+          f"{beside}; rollout + gae+sgd {halves / 1e3:.3f} s; K1 launches "
+          f"{counts['K1']} ({PROFILE_ROLLOUTS} rollouts and "
+          f"{PROFILE_ITERATIONS} iterations of 128 ticks); call {wall:.1f} s")
+    return counts
+
+
+def phase_tools(card: str, train_dir: str, train_walls: list) -> dict:
+    """The tools at full model width: (a) sim2real for both model types,
+    (b) the debug checks, (c) the weight recycler, (d) the attention
+    heat-map episode, (e) the eval CLI's render loop (from the eval phase's
+    checkpoint, or one the train CLI writes here), (f) profile_train.
+    Returns the launch counts of (d), (e) and (f)."""
+    import os
+
+    t0 = time.perf_counter()
+    _free()
+    _tools_sim2real(card, train_dir)
+    _tools_debug(card)
+    _tools_recycler(card)
+    launches = {"tools-attention-1x8": _tools_attention(card, train_dir)}
+    if not os.path.isdir(os.path.join(train_dir, "eval_src")):
+        _train_cli(train_sh_flags() + [
+            f"--train_dir={train_dir}", "--experiment=eval_src",
+            "--num_envs=64", f"--train_for_env_steps={128 * 64 * 8}"])
+    launches["tools-render-1x8"] = _tools_render(card, train_dir)
+    _free()
+    launches["tools-profile_train-1024x8"] = _tools_profile(card,
+                                                            train_walls)
+    print(f"[{card}] tools phase: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 KERNELS = {
     "K1": ("dynamics", "quadswarm_tpu_torch/csrc/dynamics_kernel.cu",
            "quadswarm_tpu/ops/pallas/dynamics_kernel.py:98"),
@@ -3733,10 +4301,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="build,kernels,agree,rollout,swarm,sim,surface,"
-                            "train,obst,eval,runs,appo,pbt,bf16,mixed,dist",
+                            "train,obst,eval,runs,appo,pbt,bf16,mixed,tools,"
+                            "dist",
                     help="comma-separated subset of build,kernels,agree,"
                          "rollout,swarm,sim,surface,train,obst,eval,runs,"
-                         "appo,pbt,bf16,mixed,dist,profile,sweep "
+                         "appo,pbt,bf16,mixed,tools,dist,profile,sweep "
                          "(off by "
                          "default: "
                          "profile, a torch.profiler breakdown of a rollout; "
@@ -3809,8 +4378,9 @@ def main(argv=None) -> int:
     import tempfile
     workdir = tempfile.TemporaryDirectory()
     train_dir = workdir.name
+    train_walls = []
     if "train" in phases:
-        train_counts, check = phase_train(card, train_dir)
+        train_counts, check, train_walls = phase_train(card, train_dir)
         checks["K1"].insert(0, check)
         # the main path first: a kernel's `launches` is its count there
         launches = {"train-1024x8": train_counts, **launches}
@@ -3838,6 +4408,8 @@ def main(argv=None) -> int:
     if "mixed" in phases:
         launches["mixed-8x512x8"], check = phase_mixed(card, train_dir)
         checks["K1"].append(check)
+    if "tools" in phases:
+        launches.update(phase_tools(card, train_dir, train_walls))
     workdir.cleanup()
     if "dist" in phases:
         launches.update(phase_dist(card))

@@ -114,8 +114,17 @@ constexpr int kThreads = 64;
 // the seven 3-vectors and rot.
 constexpr int kStageOut = 30;
 
+// max, min and clamp that keep a NaN, as the plain version's torch.clamp,
+// torch.maximum and torch.minimum do (and jnp.clip in the TPU kernel):
+// fmaxf and fminf return the other operand and would hide it.
+__device__ __forceinline__ float maxf(float x, float lo) {
+  return x < lo ? lo : x;
+}
+__device__ __forceinline__ float minf(float x, float hi) {
+  return x > hi ? hi : x;
+}
 __device__ __forceinline__ float clampf(float x, float lo, float hi) {
-  return fminf(fmaxf(x, lo), hi);
+  return minf(maxf(x, lo), hi);
 }
 
 // Block-wide copy of `count` contiguous floats between 16-byte aligned
@@ -197,7 +206,7 @@ dynamics_kernel(const Params prm, const float* __restrict__ table, int rows,
       const float lin = p[P_LINEARITY];
       for (int m = 0; m < 4; ++m) {
         float tau = cmds[m] < cd[m] ? p[P_TAU_DOWN] : p[P_TAU_UP];
-        tau = fminf(tau, 1.f);
+        tau = minf(tau, 1.f);
         rd[m] = tau * (sqrtf(cmds[m]) - rd[m]) + rd[m];
         cd[m] = clampf(rd[m] * rd[m] + cmds[m] * noise[m], 0.f, 1.f);
         thrusts[m] = p[P_THRUST_MAX + m] *
@@ -279,7 +288,7 @@ dynamics_kernel(const Params prm, const float* __restrict__ table, int rows,
       float pos_raw[3];
       for (int a = 0; a < 3; ++a) {
         pos_raw[a] = pos[a] + dt * vel[a];
-        pos[a] = fminf(fmaxf(pos_raw[a], p[P_ROOM_LO + a]), p[P_ROOM_HI + a]);
+        pos[a] = clampf(pos_raw[a], p[P_ROOM_LO + a], p[P_ROOM_HI + a]);
       }
       crashed_wall = (pos_raw[0] != pos[0]) || (pos_raw[1] != pos[1]);
       crashed_ceiling = pos_raw[2] > pos[2];
@@ -304,7 +313,7 @@ dynamics_kernel(const Params prm, const float* __restrict__ table, int rows,
               sqrtf(vel[0] * vel[0] + vel[1] * vel[1] + vel[2] * vel[2]);
           if (vel_norm < kEps) {
             const float fxy = sqrtf(force[0] * force[0] + force[1] * force[1]);
-            const float static_mag = fmaxf(fxy - friction, 0.f);
+            const float static_mag = maxf(fxy - friction, 0.f);
             float fs, fc;
             sincosf(atan2f(force[1], force[0]), &fs, &fc);
             force[0] = static_mag == 0.f ? 0.f : static_mag * fc;
@@ -334,7 +343,7 @@ dynamics_kernel(const Params prm, const float* __restrict__ table, int rows,
         w[a] = new_w[a];
       }
       acc[2] = -kGrav + acc[2];
-      if (below) acc[2] = fmaxf(acc[2], 0.f);
+      if (below) acc[2] = maxf(acc[2], 0.f);
       on_floor = below;
       crashed_floor = case_b;
 

@@ -4,7 +4,8 @@ Port of quadswarm_tpu/env/gym_api.py: `QuadrotorEnvMulti`, a stateful
 multi-agent env with the old gym list API (`reset() -> [obs_i]`,
 `step([a_i]) -> ([obs_i], [rew_i], [done_i], [info_i])`, auto-reset, and
 `info[i]["episode_extra_stats"]` at an episode's end with the reference's
-metric names plus scenario-prefixed copies); `QuadEnvCompatibility`, the
+metric names plus scenario-prefixed copies, and `render()`, an rgb_array
+frame); `QuadEnvCompatibility`, the
 gymnasium 5-tuple form; and `make_quadrotor_env_multi(args)`, the factory
 from parsed `--quads_*` flags.
 
@@ -175,9 +176,22 @@ class QuadrotorEnvMulti:
         return infos
 
     def render(self, views=("topdown", "chase", "global")):
-        raise NotImplementedError(
-            "rendering is not ported yet (ROADMAP.md Queue 1 item 15); "
-            "record trajectories with the eval CLI's --render_mode=dump")
+        """An rgb_array frame (H, W, 3) uint8 of the current state, one
+        panel per view mode (`utils/render.py::render_frame`, which needs
+        matplotlib); None before the first reset."""
+        from quadswarm_tpu_torch.utils.render import render_frame
+
+        if self._state is None:
+            return None
+        s = self._state
+        host = lambda x: x[0].cpu().numpy()
+        obstacles = None
+        if self.cfg.use_obstacles:
+            obstacles = host(s.obst_pos)[host(s.obst_active)]
+        return render_frame(
+            host(s.dyn.pos), host(s.scenario.goals), host(s.prev_coll_ids),
+            room_dims=self.cfg.room_dims, views=views, obstacles=obstacles,
+            obst_size=float(s.obst_size[0]))
 
     def close(self):
         self._state = None

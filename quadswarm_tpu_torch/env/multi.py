@@ -26,8 +26,9 @@ on free cells.
 
 Every control mode, shared or per-drone params (a randomized fleet: row i
 of each field is drone i of every env, as in the JAX package's vmapped
-dynamics) and all 20 scenario modes run.  bfloat16 raises
-NotImplementedError (ROADMAP.md item 8b).  Like the JAX package, a
+dynamics) and all 20 scenario modes run, in float32 or in bfloat16
+(`EnvConfig.dtype`: K1 casts at its boundary, and the event table stays
+float32).  Like the JAX package, a
 per-drone fleet takes its floor threshold and collision radii from drone
 0's arm.
 
@@ -462,10 +463,16 @@ def batched_env_step(cfg: EnvConfig, params, states: EnvState,
     # One device-to-host sync per tick: the reset runs only on ticks where
     # some episode ended (episodes are fixed-length).
     if auto_reset and bool(torch.any(done)):
-        reset_states, reset_obs = reset_like(cfg, params, gen, new_state)
-        new_state = _select_done(done, reset_states, new_state)
-        obs = _select_done(done, reset_obs, obs)
+        new_state, obs = reset_done(cfg, params, gen, new_state, obs, done)
     return new_state, obs, rewards, done[:, None].expand(rewards.shape), info
+
+
+def reset_done(cfg: EnvConfig, params, gen, states: EnvState, obs, done):
+    """The envs whose episode ended (done (E,) bool) replaced by fresh
+    episodes (`reset_like`), the others kept; returns (states', obs')."""
+    reset_states, reset_obs = reset_like(cfg, params, gen, states)
+    return (_select_done(done, reset_states, states),
+            _select_done(done, reset_obs, obs))
 
 
 def reset_like(cfg: EnvConfig, params, gen, states: EnvState):

@@ -8,11 +8,16 @@ vectors from the caller's generator unless `draws` supplies them.
 `pos`: standard normals "pos_n", "vel_n", "omega_n", "theta_n", "acc_n",
 "acc_dyn_n" and unit uniforms "pos_u", "vel_u", "theta_u".  A uniform whose
 range (or a normal whose std) is zero in the parameters contributes
-nothing and is not drawn.
+nothing and is not drawn.  Under the gyro random-walk model
+(`gyro_norm_std != 0` and a `gyro_bias` given) "omega_n" is not drawn;
+the standard normals "gyro_bias_n" (the bias step, the JAX package's
+`keys[4]`) and "gyro_walk_n" (the random walk, its `keys[5]`) take its
+place.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -79,8 +84,18 @@ def add_noise(params: SensorNoiseParams, pos, vel, rot, omega, acc,
     vel_noise = normal("vel_n", params.vel_norm_std) + uniform(
         "vel_u", params.vel_unif_range)
     if params.gyro_norm_std != 0.0 and gyro_bias is not None:
-        raise NotImplementedError("the gyro random-walk model is not ported")
-    omega_noise = normal("omega_n", params.gyro_noise_density)
+        # the RotorS IMU bias model: a first-order Gauss-Markov bias plus
+        # white noise of std gyro_random_walk
+        sigma_g_d = params.gyro_noise_density / math.sqrt(dt)
+        tau = params.gyro_bias_correlation_time
+        sigma_b_g_d = math.sqrt(-(sigma_g_d ** 2) * (tau / 2)
+                                * (math.exp(-2 * dt / tau) - 1.0))
+        gyro_bias = math.exp(-dt / tau) * gyro_bias + normal(
+            "gyro_bias_n", sigma_b_g_d)
+        omega_noise = gyro_bias + normal("gyro_walk_n",
+                                         params.gyro_random_walk)
+    else:
+        omega_noise = normal("omega_n", params.gyro_noise_density)
     theta = normal("theta_n", params.quat_norm_std) + uniform(
         "theta_u", params.quat_unif_range)
     acc_noise = normal("acc_n", params.acc_static_noise_std) + acc * normal(

@@ -24,6 +24,7 @@ cast to dispatch.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 
@@ -165,7 +166,10 @@ class NeighborEncoderDeepsets(nn.Module):
 class NeighborEncoderAttention(nn.Module):
     """CoRL-2021 attention over neighbors: per-neighbor embeddings e_i from
     (self obs, neighbor obs), values h_i, scalar scores from (e_i, mean e),
-    softmax-weighted sum of the values."""
+    softmax-weighted sum of the values.  Inside `recorded_attention` each
+    forward appends its softmax weights (b, k) to `sink`."""
+
+    sink = None
 
     def __init__(self, self_obs_dim: int, neighbor_obs_dim: int, hidden: int,
                  num_neighbors: int, act: str = "tanh"):
@@ -187,7 +191,28 @@ class NeighborEncoderAttention(nn.Module):
         e_mean = e.mean(1, keepdim=True).expand_as(e)
         scores = self.attention_mlp(torch.cat([e, e_mean], -1))[..., 0]
         alpha = torch.softmax(scores, 1)
+        if self.sink is not None:
+            self.sink.append(alpha)
         return torch.sum(alpha[..., None] * h, 1)
+
+
+@contextlib.contextmanager
+def recorded_attention(model: nn.Module):
+    """The counterpart of flax's `sow("intermediates", "attn", alpha)` in
+    the JAX package's NeighborEncoderAttention: inside the block every
+    NeighborEncoderAttention of `model` appends the softmax weights of each
+    forward, (b, k), to a list; yields {module path: list}, e.g.
+    "actor_encoder.neighbor_encoder".  Outside it the encoders keep
+    nothing, and training never enters it."""
+    found = {name: m for name, m in model.named_modules()
+             if isinstance(m, NeighborEncoderAttention)}
+    for m in found.values():
+        m.sink = []
+    try:
+        yield {name: m.sink for name, m in found.items()}
+    finally:
+        for m in found.values():
+            m.sink = None
 
 
 class NeighborEncoderMlp(nn.Module):

@@ -16,8 +16,6 @@ import json
 import os
 import warnings
 
-# ROADMAP.md Queue 1 items of the paths not ported yet.
-
 
 def str2bool(v):
     if isinstance(v, bool):
@@ -218,13 +216,15 @@ def add_evaluation_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--eval_envs", default=1, type=int,
                    help="envs run side by side in a round (episodes are "
                         "fixed-length, so a round ends eval_envs episodes); "
-                        "1 = the single-env loop, which can dump "
-                        "trajectories")
+                        "1 = the single-env loop, which can render and "
+                        "dump")
     p.add_argument("--render_mode", default="plot",
                    choices=["plot", "dump", "none", "human", "rgb_array",
                             "live"],
-                   help="the port runs dump and none (ROADMAP.md item 15 "
-                        "holds the others)")
+                   help="with --eval_envs=1: plot (human, rgb_array) draws "
+                        "every 10th tick's frame after the episode, live "
+                        "streams frames while it runs, dump writes the "
+                        "trajectory as .npz; drawing needs matplotlib")
     p.add_argument("--render_out", default="render_out", type=str)
     p.add_argument("--render_every_nth", default=5, type=int)
     p.add_argument("--realtime", default=False, type=str2bool, nargs="?",

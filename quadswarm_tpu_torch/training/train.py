@@ -42,6 +42,7 @@ Example (the 8-drone mix baseline):
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import sys
 import time
@@ -66,6 +67,7 @@ def main(argv=None) -> int:
     from quadswarm_tpu_torch.utils.checkpoint import (
         checkpoint_dir, latest_checkpoint, load_checkpoint, save_checkpoint,
     )
+    from quadswarm_tpu_torch.utils.debug import enable_debug_checks, trace
     from quadswarm_tpu_torch.utils.metrics import MetricLogger
     from quadswarm_tpu_torch.utils.struct import resolve_device
 
@@ -143,11 +145,11 @@ def main(argv=None) -> int:
                           group=args.wandb_group, name=args.experiment)
     ) if is_main else None
     if args.debug_checks:
-        torch.autograd.set_detect_anomaly(True)
+        enable_debug_checks()
     last_save = time.time()
     it = 0
     last_t, last_steps = time.time(), trainer.env_steps
-    profiler = None
+    profiling = contextlib.ExitStack()
     # Best checkpoint: windowed mean of the episode true_reward.
     best_objective = -float("inf")
     recent_true_rewards: list[float] = []
@@ -157,15 +159,9 @@ def main(argv=None) -> int:
             it += 1
             if args.profile_dir and it == 1 and is_main:
                 # from the second iteration on: the first holds the warm-up
-                profiler = torch.profiler.profile(activities=[
-                    torch.profiler.ProfilerActivity.CPU] + (
-                    [torch.profiler.ProfilerActivity.CUDA]
-                    if device.type == "cuda" else []))
-                profiler.start()
-            if profiler is not None and it == 1 + args.profile_iters:
-                profiler.stop()
-                _export_trace(profiler, args.profile_dir)
-                profiler = None
+                profiling.enter_context(trace(args.profile_dir))
+            if it == 1 + args.profile_iters:
+                profiling.close()
             if it % args.log_every_iters == 0:
                 m = {k: float(v) for k, v in metrics.items()}
                 m.update(trainer.episode_stats(infos))
@@ -196,9 +192,7 @@ def main(argv=None) -> int:
                 save()
                 last_save = time.time()
     finally:
-        if profiler is not None:
-            profiler.stop()
-            _export_trace(profiler, args.profile_dir)
+        profiling.close()
         save()
         if logger is not None:
             logger.close()
@@ -262,13 +256,6 @@ def _train_mixed(args, env_cfg, ppo_cfg, dyn, base_coeff, exp_dir,
             runner.save(args.train_dir, args.experiment)
             logger.close()
     return 0
-
-
-def _export_trace(profiler, profile_dir: str) -> None:
-    os.makedirs(profile_dir, exist_ok=True)
-    path = os.path.join(profile_dir, "trace.json")
-    profiler.export_chrome_trace(path)
-    print(f"profiler trace written to {path}", flush=True)
 
 
 if __name__ == "__main__":

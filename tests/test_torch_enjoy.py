@@ -9,7 +9,9 @@
   unless a flag is given; `best` falls back to `latest` with the warning;
   the checkpoint's normalizer is the one the policy uses;
   `--render_mode=dump` writes (ep_len + 1, N, 3) positions; the render
-  modes that are not ported raise, naming ROADMAP.md item 15.
+  modes draw their files: the default plot every 10th tick's frame, live
+  every `--render_every_nth` tick's frame and `latest.png`,
+  `--visualize_v_value` the value map.
 """
 from __future__ import annotations
 
@@ -187,6 +189,18 @@ def test_normalize_input_checkpoint_restores_its_normalizer(trained,
 @pytest.mark.parametrize("flags", [
     (), ("--render_mode=live",), ("--render_mode=none",
                                   "--visualize_v_value")])
-def test_render_modes_not_ported_raise(trained, flags):
-    with pytest.raises(NotImplementedError, match="item 15"):
-        _eval(trained, "--max_num_episodes=1", *flags)
+def test_render_modes_not_ported_raise(trained, flags, tmp_path):
+    """Each render mode of the single-env loop draws its files for an
+    episode of 0.2 s (ticks 1 to 21; the recorder holds 21 ticks)."""
+    assert _eval(trained, "--max_num_episodes=1", "--render_every_nth=5",
+                 "--quads_episode_duration=0.2", f"--render_out={tmp_path}",
+                 *flags) == 0
+    files = sorted(str(p.relative_to(tmp_path))
+                   for p in tmp_path.rglob("*.png"))
+    want = {(): [f"ep000/frame_{t:05d}.png" for t in (0, 10, 20)],
+            ("--render_mode=live",): [
+                f"ep000/live/frame_{t:05d}.png" for t in (5, 10, 15, 20)]
+            + ["ep000/live/latest.png"],
+            ("--render_mode=none", "--visualize_v_value"): [
+                "ep000/v_value_map.png"]}[flags]
+    assert files == want

@@ -291,6 +291,43 @@ def test_sensor_noise_with_injected_draws():
         np.testing.assert_allclose(g.numpy(), np.asarray(w), **F64)
 
 
+def test_sensor_noise_gyro_random_walk():
+    """The RotorS gyro-bias branch: JAX's own draws (its keys 4 and 5 for
+    the bias step and the walk, the rest for the other noises) injected
+    into the port give the same noisy omega and new bias."""
+    rng = np.random.default_rng(12)
+    n, dt = 8, 0.01
+    pos, vel, omega, acc, bias = (rng.normal(0, 2, (n, 3)) for _ in range(5))
+    rot = random_rotations(rng, n)
+    params = dict(gyro_norm_std=0.1, gyro_bias_correlation_time=20.0)
+    key = jax.random.PRNGKey(3)
+    keys = jax.random.split(key, 10)
+    normal = lambda i: np.asarray(jax.random.normal(keys[i], (n, 3),
+                                                    jnp.float64))
+    draws = {"pos_n": normal(0), "vel_n": normal(2), "gyro_bias_n": normal(4),
+             "gyro_walk_n": normal(5), "acc_n": normal(8),
+             "acc_dyn_n": normal(9)}
+    want = j_sensor.add_noise(
+        j_sensor.SensorNoiseParams(**params), key, j64(pos), j64(vel),
+        j64(rot), j64(omega), j64(acc), dt, gyro_bias=j64(bias))
+    got = t_sensor.add_noise(
+        t_sensor.SensorNoiseParams(**params), t64(pos), t64(vel), t64(rot),
+        t64(omega), t64(acc), dt, gyro_bias=t64(bias),
+        draws={k: t64(v) for k, v in draws.items()})
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **F64)
+    assert not np.allclose(np.asarray(want[5]), bias)
+    # without a bias the branch is off: the white noise of omega_n
+    off = t_sensor.add_noise(
+        t_sensor.SensorNoiseParams(**params), t64(pos), t64(vel), t64(rot),
+        t64(omega), t64(acc), dt,
+        draws={**{k: t64(v) for k, v in draws.items()},
+               "omega_n": t64(normal(4))})
+    np.testing.assert_allclose(
+        off[3].numpy(), omega + 0.000175 * normal(4), **F64)
+    assert off[5] is None
+
+
 @pytest.mark.parametrize("repr_name", ["xyz_vxyz_R_omega",
                                        "xyz_vxyz_R_omega_floor",
                                        "xyz_vxyz_R_omega_wall"])

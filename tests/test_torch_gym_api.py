@@ -149,10 +149,20 @@ def test_per_drone_fleet_and_obstacle_overrides():
 
 
 def test_render_raises_and_card_is_the_default():
+    """render() is None before a reset, then an (H, W, 3) uint8 frame of
+    the state: `render_frame` of its host arrays."""
+    from quadswarm_tpu_torch.utils.render import render_frame
+
     env = QuadrotorEnvMulti(num_agents=2, ep_time=1.0, device="cpu")
+    assert env.render() is None
     env.reset(seed=0)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        env.render()
+    frame = env.render(views=("topdown",))
+    s = env._state
+    want = render_frame(s.dyn.pos[0].numpy(), s.scenario.goals[0].numpy(),
+                        s.prev_coll_ids[0].numpy(), views=("topdown",))
+    assert frame.dtype == np.uint8 and frame.shape == want.shape
+    assert frame.ndim == 3 and frame.shape[2] == 3
+    np.testing.assert_array_equal(frame, want)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             QuadrotorEnvMulti(num_agents=2)
