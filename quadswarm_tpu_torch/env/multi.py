@@ -73,6 +73,7 @@ from quadswarm_tpu_torch.ops.rotations import yaw_rot
 from quadswarm_tpu_torch.utils.struct import (
     Struct, map_fields, require_float_dtype, resolve_device,
 )
+from quadswarm_tpu_torch.utils.tracing import span
 
 GRAV = 9.81
 MIX_MODES_SINGLE = tuple(MODE_IDS[m] for m in (
@@ -458,12 +459,18 @@ def batched_env_step(cfg: EnvConfig, params, states: EnvState,
     makes no device-to-host sync.
     """
     cfg.check_supported()
-    new_state, obs, rewards, done, info = _step(cfg, params, states, actions,
-                                                gen, draws or {})
+    with span("env.step"):
+        new_state, obs, rewards, done, info = _step(cfg, params, states,
+                                                    actions, gen, draws or {})
     # One device-to-host sync per tick: the reset runs only on ticks where
     # some episode ended (episodes are fixed-length).
-    if auto_reset and bool(torch.any(done)):
-        new_state, obs = reset_done(cfg, params, gen, new_state, obs, done)
+    if auto_reset:
+        with span("env.sync"):
+            any_done = bool(torch.any(done))
+        if any_done:
+            with span("env.reset_done"):
+                new_state, obs = reset_done(cfg, params, gen, new_state, obs,
+                                            done)
     return new_state, obs, rewards, done[:, None].expand(rewards.shape), info
 
 
@@ -490,193 +497,207 @@ def reset_like(cfg: EnvConfig, params, gen, states: EnvState):
 
 def _step(cfg: EnvConfig, params, states: EnvState, actions, gen,
           draws: dict):
-    """Stages 1-7 of the tick without the auto-reset; done is (E,)."""
+    """Stages 1-7 of the tick without the auto-reset; done is (E,).  Each
+    stage is a span of `utils/tracing.py`: env.scenario, env.dynamics,
+    env.collisions, env.reward, env.interactions, env.obs, env.stats."""
     dtype = cfg.dtype
     freq = cfg.control_freq
-    actions = actions.to(dtype)
     goals = states.scenario.goals
-    tick = states.tick + 1
 
     # Scenario: continuous goal motion + presampled event playback.
-    scen = batched_scenario_step(cfg.scenario_config(), states.scenario, tick)
+    with span("env.scenario"):
+        actions = actions.to(dtype)
+        tick = states.tick + 1
+        time_remain = cfg.ep_len - states.tick
+        done = tick > cfg.ep_len
+        scen = batched_scenario_step(cfg.scenario_config(), states.scenario,
+                                     tick)
 
     # 1. Control + dynamics (K1).
-    dyn = _fleet_dynamics(cfg, params, states, actions, gen, draws)
-    time_remain = cfg.ep_len - states.tick
-    rewards, rew_info = compute_reward(states.rew_coeff, dyn.pos, goals,
-                                       actions, dyn.rot, dyn.omega,
-                                       dyn.on_floor, cfg.dt)
-    done = tick > cfg.ep_len
+    with span("env.dynamics"):
+        dyn = _fleet_dynamics(cfg, params, states, actions, gen, draws)
 
     # 2. Collision detection (radii from the fleet's arm length).
-    arm = fleet_arm(params.arm)
-    hitbox = cfg.collision_hitbox_radius * arm
-    falloff = cfg.collision_falloff_radius * arm
-    if cfg.use_pallas_pairs:
-        # K2: the (N, N) matrices are never made; the history stays packed.
-        curr_ids, pen_unit, resp_any, resp_partner, curr_pairs = \
-            pair_collisions(dyn.pos.contiguous(), states.prev_coll_pairs,
-                            hitbox, falloff, 1.0)
-    else:
-        dist, curr_pairs = coll.collision_matrix(dyn.pos, hitbox)
-        curr_ids = torch.any(curr_pairs, -1)
-        new_pairs = curr_pairs & ~states.prev_coll_pairs
-    unique_ids = curr_ids & ~states.prev_coll_ids
-    cct = torch.sum(unique_ids, -1).to(torch.int32) // 2
-    grace = tick >= int(1.5 * freq)
-    final5 = time_remain <= int(5.0 * freq)
-    zero_i = torch.zeros_like(cct)
-    collisions_per_episode = states.collisions_per_episode + cct
-    collisions_after_settle = states.collisions_after_settle + torch.where(
-        grace, cct, zero_i)
-    collisions_final_5s = states.collisions_final_5s + torch.where(
-        final5, cct, zero_i)
-    agent_col_agent = torch.where(
-        (cct > 0)[:, None] & grace[:, None] & unique_ids,
-        torch.zeros_like(states.agent_col_agent), states.agent_col_agent)
+    with span("env.collisions"):
+        arm = fleet_arm(params.arm)
+        hitbox = cfg.collision_hitbox_radius * arm
+        falloff = cfg.collision_falloff_radius * arm
+        if cfg.use_pallas_pairs:
+            # K2: the (N, N) matrices are never made; the history stays
+            # packed.
+            curr_ids, pen_unit, resp_any, resp_partner, curr_pairs = \
+                pair_collisions(dyn.pos.contiguous(), states.prev_coll_pairs,
+                                hitbox, falloff, 1.0)
+        else:
+            dist, curr_pairs = coll.collision_matrix(dyn.pos, hitbox)
+            curr_ids = torch.any(curr_pairs, -1)
+            new_pairs = curr_pairs & ~states.prev_coll_pairs
+        unique_ids = curr_ids & ~states.prev_coll_ids
+        cct = torch.sum(unique_ids, -1).to(torch.int32) // 2
+        grace = tick >= int(1.5 * freq)
+        final5 = time_remain <= int(5.0 * freq)
+        zero_i = torch.zeros_like(cct)
+        collisions_per_episode = states.collisions_per_episode + cct
+        collisions_after_settle = (states.collisions_after_settle
+                                   + torch.where(grace, cct, zero_i))
+        collisions_final_5s = states.collisions_final_5s + torch.where(
+            final5, cct, zero_i)
+        agent_col_agent = torch.where(
+            (cct > 0)[:, None] & grace[:, None] & unique_ids,
+            torch.zeros_like(states.agent_col_agent), states.agent_col_agent)
 
-    # Obstacle collisions: a hit counts on the tick it starts.
-    if cfg.use_obstacles:
-        obst_hit, obst_idx = obst.obstacle_collisions(
-            dyn.pos[..., :2], states.obst_pos[..., :2], states.obst_active,
-            states.obst_size / 2.0, arm)
-        curr_obst = obst_hit & ~states.prev_obst_hits
-        n_obst = torch.sum(curr_obst, -1).to(torch.int32)
-        settled = curr_obst & grace[:, None]
-        rel_dist = torch.linalg.vector_norm(dyn.pos - goals, dim=-1)
-        binned = lambda far: torch.sum(settled & (rel_dist > far),
-                                       -1).to(torch.int32)
-        obst_counts = dict(
-            obst_collisions_per_episode=states.obst_collisions_per_episode
-            + n_obst,
-            obst_collisions_after_settle=states.obst_collisions_after_settle
-            + torch.where(grace, n_obst, zero_i),
-            obst_coll_dist_3_5=states.obst_coll_dist_3_5 + binned(3.5),
-            obst_coll_dist_5=states.obst_coll_dist_5 + binned(5.0),
-            agent_col_obst=torch.where(
-                (n_obst > 0)[:, None] & settled,
-                torch.zeros_like(states.agent_col_obst),
-                states.agent_col_obst))
-    else:
-        obst_hit = curr_obst = torch.zeros_like(unique_ids)
-        obst_counts = {}
+        # Obstacle collisions: a hit counts on the tick it starts.
+        if cfg.use_obstacles:
+            obst_hit, obst_idx = obst.obstacle_collisions(
+                dyn.pos[..., :2], states.obst_pos[..., :2],
+                states.obst_active, states.obst_size / 2.0, arm)
+            curr_obst = obst_hit & ~states.prev_obst_hits
+            n_obst = torch.sum(curr_obst, -1).to(torch.int32)
+            settled = curr_obst & grace[:, None]
+            rel_dist = torch.linalg.vector_norm(dyn.pos - goals, dim=-1)
+            binned = lambda far: torch.sum(settled & (rel_dist > far),
+                                           -1).to(torch.int32)
+            obst_counts = dict(
+                obst_collisions_per_episode=(
+                    states.obst_collisions_per_episode + n_obst),
+                obst_collisions_after_settle=(
+                    states.obst_collisions_after_settle
+                    + torch.where(grace, n_obst, zero_i)),
+                obst_coll_dist_3_5=states.obst_coll_dist_3_5 + binned(3.5),
+                obst_coll_dist_5=states.obst_coll_dist_5 + binned(5.0),
+                agent_col_obst=torch.where(
+                    (n_obst > 0)[:, None] & settled,
+                    torch.zeros_like(states.agent_col_obst),
+                    states.agent_col_obst))
+        else:
+            obst_hit = curr_obst = torch.zeros_like(unique_ids)
+            obst_counts = {}
 
-    floor_crash = dyn.crashed_floor
-    wall_crash = dyn.crashed_wall & ~states.prev_wall
-    ceiling_crash = dyn.crashed_ceiling & ~states.prev_ceiling
-    room_crash = (floor_crash | wall_crash | ceiling_crash) & ~states.prev_room
+        floor_crash = dyn.crashed_floor
+        wall_crash = dyn.crashed_wall & ~states.prev_wall
+        ceiling_crash = dyn.crashed_ceiling & ~states.prev_ceiling
+        room_crash = ((floor_crash | wall_crash | ceiling_crash)
+                      & ~states.prev_room)
     count = lambda prev, hits: prev + torch.where(
         grace, torch.sum(hits, -1).to(torch.int32), zero_i)
 
-    # 3. Collision rewards.
-    rc = states.rew_coeff
-    rew_quadcol = -agent_coeff(rc.quadcol_bin) * unique_ids.to(dtype)
-    if cfg.use_pallas_pairs:
-        # K2's sum has unit coefficient, sum(1 - d / falloff); the per-env
-        # (annealed) coefficient and dt scale it here.
-        rew_proximity = -(cfg.control_dt
-                          * agent_coeff(rc.quadcol_bin_smooth_max)
-                          * pen_unit.to(dtype))
-    else:
-        # in float32 on a bfloat16 env: the JAX package's falloff is a
-        # float32 array, which promotes the penalty
-        wide = torch.promote_types(dtype, torch.float32)
-        rew_proximity = -proximity_penalties(
-            dist.to(wide), dist <= falloff, falloff,
-            rc.quadcol_bin_smooth_max.to(wide), cfg.control_dt)
-    rew_obst_raw = -curr_obst.to(dtype)
-    rew_quadcol_obst = agent_coeff(rc.quadcol_bin_obst) * rew_obst_raw
-    rewards = rewards + rew_quadcol + rew_proximity
-    if cfg.use_obstacles:
-        rewards = rewards + rew_quadcol_obst
-
-    # Goal-distance tracking.
-    dist_to_goal = torch.linalg.vector_norm(dyn.pos - goals, dim=-1)
-    dist5 = torch.cat([states.dist5[..., 1:], dist_to_goal[..., None]], -1)
-    reached = states.reached_goal | ((tick >= 5)[:, None] & (
-        dist5.mean(-1) < states.scenario.approach_goal_metric[:, None]))
-    last_ticks = cfg.ep_len + 1
-    window = lambda secs: (tick > last_ticks - int(secs * freq))[:, None]
-    zero_d = torch.zeros_like(dist_to_goal)
+    # 3. The per-drone reward and the collision rewards.
+    with span("env.reward"):
+        rewards, rew_info = compute_reward(states.rew_coeff, dyn.pos, goals,
+                                           actions, dyn.rot, dyn.omega,
+                                           dyn.on_floor, cfg.dt)
+        rc = states.rew_coeff
+        rew_quadcol = -agent_coeff(rc.quadcol_bin) * unique_ids.to(dtype)
+        if cfg.use_pallas_pairs:
+            # K2's sum has unit coefficient, sum(1 - d / falloff); the
+            # per-env (annealed) coefficient and dt scale it here.
+            rew_proximity = -(cfg.control_dt
+                              * agent_coeff(rc.quadcol_bin_smooth_max)
+                              * pen_unit.to(dtype))
+        else:
+            # in float32 on a bfloat16 env: the JAX package's falloff is a
+            # float32 array, which promotes the penalty
+            wide = torch.promote_types(dtype, torch.float32)
+            rew_proximity = -proximity_penalties(
+                dist.to(wide), dist <= falloff, falloff,
+                rc.quadcol_bin_smooth_max.to(wide), cfg.control_dt)
+        rew_obst_raw = -curr_obst.to(dtype)
+        rew_quadcol_obst = agent_coeff(rc.quadcol_bin_obst) * rew_obst_raw
+        rewards = rewards + rew_quadcol + rew_proximity
+        if cfg.use_obstacles:
+            rewards = rewards + rew_quadcol_obst
 
     # 4. Interaction forces.
-    vel, omega = dyn.vel, dyn.omega
-    if cfg.use_downwash:
-        vel, omega, _ = apply_downwash(dyn.pos, vel, omega, dyn.rot,
-                                       cfg.control_dt, gen,
-                                       draws.get("downwash"))
-    if cfg.apply_collision_force:
-        if cfg.use_pallas_pairs:
-            vel, omega = coll.drone_collision_response_indexed(
-                dyn.pos, vel, omega, resp_any, resp_partner.long(), gen,
-                draws.get("drone_normals"), draws.get("drone_uniforms"))
-        else:
-            vel, omega = coll.drone_collision_response(
-                dyn.pos, vel, omega, new_pairs, gen,
-                draws.get("drone_normals"), draws.get("drone_uniforms"))
-        if cfg.use_obstacles:
-            hit_pos = torch.gather(states.obst_pos, 1, obst_idx[..., None]
-                                   .expand(obst_idx.shape + (3,)))
-            vel, omega = coll.obstacle_collision_response(
-                dyn.pos, vel, omega, hit_pos, states.obst_size[:, None],
-                curr_obst, gen, draws.get("obst_normals"),
-                draws.get("obst_uniforms"))
-        vel, omega = coll.wall_collision_response(
-            dyn.pos, vel, omega, cfg.room_box, wall_crash, gen,
-            draws.get("wall"))
-        vel, omega = coll.ceiling_collision_response(
-            vel, omega, ceiling_crash, gen, draws.get("ceiling"))
-    dyn = dyn.replace(vel=vel, omega=omega)
+    with span("env.interactions"):
+        vel, omega = dyn.vel, dyn.omega
+        if cfg.use_downwash:
+            vel, omega, _ = apply_downwash(dyn.pos, vel, omega, dyn.rot,
+                                           cfg.control_dt, gen,
+                                           draws.get("downwash"))
+        if cfg.apply_collision_force:
+            if cfg.use_pallas_pairs:
+                vel, omega = coll.drone_collision_response_indexed(
+                    dyn.pos, vel, omega, resp_any, resp_partner.long(), gen,
+                    draws.get("drone_normals"), draws.get("drone_uniforms"))
+            else:
+                vel, omega = coll.drone_collision_response(
+                    dyn.pos, vel, omega, new_pairs, gen,
+                    draws.get("drone_normals"), draws.get("drone_uniforms"))
+            if cfg.use_obstacles:
+                hit_pos = torch.gather(states.obst_pos, 1, obst_idx[..., None]
+                                       .expand(obst_idx.shape + (3,)))
+                vel, omega = coll.obstacle_collision_response(
+                    dyn.pos, vel, omega, hit_pos, states.obst_size[:, None],
+                    curr_obst, gen, draws.get("obst_normals"),
+                    draws.get("obst_uniforms"))
+            vel, omega = coll.wall_collision_response(
+                dyn.pos, vel, omega, cfg.room_box, wall_crash, gen,
+                draws.get("wall"))
+            vel, omega = coll.ceiling_collision_response(
+                vel, omega, ceiling_crash, gen, draws.get("ceiling"))
+        dyn = dyn.replace(vel=vel, omega=omega)
 
     # 6. Observations (K3 reads the post-response velocities).
-    obs, gyro_bias = _compute_obs(cfg, dyn, scen.goals, states.gyro_bias, gen,
-                                  draws.get("sensor"), obstacles_of(states))
+    with span("env.obs"):
+        obs, gyro_bias = _compute_obs(cfg, dyn, scen.goals, states.gyro_bias,
+                                      gen, draws.get("sensor"),
+                                      obstacles_of(states))
 
-    new_state = states.replace(
-        dyn=dyn, scenario=scen, tick=tick, prev_coll_pairs=curr_pairs,
-        prev_coll_ids=curr_ids, prev_obst_hits=obst_hit,
-        prev_wall=wall_crash, prev_ceiling=ceiling_crash,
-        prev_room=room_crash, gyro_bias=gyro_bias, dist5=dist5,
-        collisions_per_episode=collisions_per_episode,
-        collisions_after_settle=collisions_after_settle,
-        collisions_final_5s=collisions_final_5s,
-        collisions_floor_per_episode=count(
-            states.collisions_floor_per_episode, floor_crash),
-        collisions_wall_per_episode=count(
-            states.collisions_wall_per_episode, wall_crash),
-        collisions_ceiling_per_episode=count(
-            states.collisions_ceiling_per_episode, ceiling_crash),
-        collisions_room_per_episode=count(
-            states.collisions_room_per_episode, room_crash),
-        agent_col_agent=agent_col_agent, reached_goal=reached,
-        dist_sum_1s=states.dist_sum_1s + torch.where(window(1), dist_to_goal,
-                                                     zero_d),
-        dist_sum_3s=states.dist_sum_3s + torch.where(window(3), dist_to_goal,
-                                                     zero_d),
-        dist_sum_5s=states.dist_sum_5s + torch.where(window(5), dist_to_goal,
-                                                     zero_d),
-        crashes_last_episode=states.crashes_last_episode
-        + rew_info.rew_crash[:, 0],
-        cum_rewraw_main=states.cum_rewraw_main + rew_info.rewraw_pos,
-        cum_rewraw_quadcol=states.cum_rewraw_quadcol - unique_ids.to(dtype),
-        **obst_counts)
-
-    # 7. Episode metrics + auto-reset of the finished envs.
-    info = _episode_stats(cfg, new_state, done)
-    info.update({
-        "rewards/rew_pos": rew_info.rew_pos,
-        "rewards/rew_action": rew_info.rew_action,
-        "rewards/rew_crash": rew_info.rew_crash,
-        "rewards/rew_orient": rew_info.rew_orient,
-        "rewards/rew_spin": rew_info.rew_spin,
-        "rewards/rewraw_pos": rew_info.rewraw_pos,
-        "rewards/rewraw_crash": rew_info.rewraw_crash,
-        "rewards/rew_quadcol": rew_quadcol,
-        "rewards/rew_proximity": rew_proximity,
-        "rewards/rewraw_quadcol": -unique_ids.to(dtype),
-        "rewards/rew_quadcol_obstacle": rew_quadcol_obst,
-        "rewards/rewraw_quadcol_obstacle": rew_obst_raw,
-    })
+    # 7. Goal-distance tracking, the new state and the episode metrics (the
+    # auto-reset of the finished envs is the caller's).
+    with span("env.stats"):
+        dist_to_goal = torch.linalg.vector_norm(dyn.pos - goals, dim=-1)
+        dist5 = torch.cat([states.dist5[..., 1:], dist_to_goal[..., None]],
+                          -1)
+        reached = states.reached_goal | ((tick >= 5)[:, None] & (
+            dist5.mean(-1) < states.scenario.approach_goal_metric[:, None]))
+        last_ticks = cfg.ep_len + 1
+        window = lambda secs: (tick > last_ticks - int(secs * freq))[:, None]
+        zero_d = torch.zeros_like(dist_to_goal)
+        new_state = states.replace(
+            dyn=dyn, scenario=scen, tick=tick, prev_coll_pairs=curr_pairs,
+            prev_coll_ids=curr_ids, prev_obst_hits=obst_hit,
+            prev_wall=wall_crash, prev_ceiling=ceiling_crash,
+            prev_room=room_crash, gyro_bias=gyro_bias, dist5=dist5,
+            collisions_per_episode=collisions_per_episode,
+            collisions_after_settle=collisions_after_settle,
+            collisions_final_5s=collisions_final_5s,
+            collisions_floor_per_episode=count(
+                states.collisions_floor_per_episode, floor_crash),
+            collisions_wall_per_episode=count(
+                states.collisions_wall_per_episode, wall_crash),
+            collisions_ceiling_per_episode=count(
+                states.collisions_ceiling_per_episode, ceiling_crash),
+            collisions_room_per_episode=count(
+                states.collisions_room_per_episode, room_crash),
+            agent_col_agent=agent_col_agent, reached_goal=reached,
+            dist_sum_1s=states.dist_sum_1s + torch.where(
+                window(1), dist_to_goal, zero_d),
+            dist_sum_3s=states.dist_sum_3s + torch.where(
+                window(3), dist_to_goal, zero_d),
+            dist_sum_5s=states.dist_sum_5s + torch.where(
+                window(5), dist_to_goal, zero_d),
+            crashes_last_episode=states.crashes_last_episode
+            + rew_info.rew_crash[:, 0],
+            cum_rewraw_main=states.cum_rewraw_main + rew_info.rewraw_pos,
+            cum_rewraw_quadcol=states.cum_rewraw_quadcol
+            - unique_ids.to(dtype),
+            **obst_counts)
+        info = _episode_stats(cfg, new_state, done)
+        info.update({
+            "rewards/rew_pos": rew_info.rew_pos,
+            "rewards/rew_action": rew_info.rew_action,
+            "rewards/rew_crash": rew_info.rew_crash,
+            "rewards/rew_orient": rew_info.rew_orient,
+            "rewards/rew_spin": rew_info.rew_spin,
+            "rewards/rewraw_pos": rew_info.rewraw_pos,
+            "rewards/rewraw_crash": rew_info.rewraw_crash,
+            "rewards/rew_quadcol": rew_quadcol,
+            "rewards/rew_proximity": rew_proximity,
+            "rewards/rewraw_quadcol": -unique_ids.to(dtype),
+            "rewards/rew_quadcol_obstacle": rew_quadcol_obst,
+            "rewards/rewraw_quadcol_obstacle": rew_obst_raw,
+        })
     return new_state, obs, rewards, done, info
 
 

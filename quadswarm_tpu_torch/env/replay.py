@@ -18,6 +18,11 @@ write the buffer, replay or reset, and reads the four "did any env" flags
 to the host in one transfer: the one device-to-host sync of the tick, in
 place of the JAX package's outer `lax.cond` and its two nested ones (and of
 `batched_env_step`'s own `any(done)`).
+
+Spans (`utils/tracing.py`): `env.step` (the env's stages), `replay.ring`
+(the tick's decisions, then the writes of the rings), `env.sync` (the
+read), `replay.restore` (a replayed env and its observation) and
+`env.reset_done` (the fresh episodes).
 """
 from __future__ import annotations
 
@@ -30,6 +35,7 @@ from quadswarm_tpu_torch.env.multi import (
     obstacles_of, reset_like,
 )
 from quadswarm_tpu_torch.utils.struct import Struct, leaves, map_fields
+from quadswarm_tpu_torch.utils.tracing import span
 
 CP_STEP_SEC = 0.5            # checkpoint cadence
 EP_CP_SLOTS = 6              # 3 s of checkpoints
@@ -117,111 +123,119 @@ def batched_replay_step(cfg: EnvConfig, params, sample_prob: float,
     """
     cfg.check_supported()
     draws = draws or {}
-    new_state, obs, rew, done, info = _step(cfg, params, states, actions,
-                                            gen, draws)
+    with span("env.step"):
+        new_state, obs, rew, done, info = _step(cfg, params, states, actions,
+                                                gen, draws)
     e, dev = done.shape[0], done.device
     r = rstates
     freq = cfg.control_freq
     steps_ago = int(SAVE_BEFORE_COLLISION_SEC / CP_STEP_SEC)
     zero = torch.zeros_like(r.ep_cp_count)
 
-    # Mid-episode: checkpoint cadence and collision writes.
-    tick = states.tick + 1
-    live = ~done & r.activated & ~r.saved_in_replay_buffer
-    save_cp = live & (tick % int(CP_STEP_SEC * freq) == 0)
-    cp_slot = r.ep_cp_count % EP_CP_SLOTS
-    ep_cp_count = r.ep_cp_count + save_cp.to(torch.int32)
-    # a new drone pair or a new obstacle hit
-    collided = torch.any(new_state.prev_coll_ids & ~states.prev_coll_ids, -1)
-    if cfg.use_obstacles:
-        collided = collided | torch.any(
-            new_state.prev_obst_hits & ~states.prev_obst_hits, -1)
-    can_write = (live & collided & (tick > int(1.5 * freq))
-                 & (tick - r.last_tick_added > int(5 * freq))
-                 & (ep_cp_count >= steps_ago))
-    # The checkpoint from 1.5 s ago: (count_after - 3) % 6 is never this
-    # tick's write slot count_before % 6.
-    read_slot = (ep_cp_count - steps_ago) % EP_CP_SLOTS
-    slots = torch.arange(BUFFER_SLOTS, device=dev)
-    written = can_write[:, None] & (slots == r.buffer_idx[:, None])
-    num_replayed = torch.where(written, torch.zeros_like(r.num_replayed),
-                               r.num_replayed)
-    buffer_idx = torch.where(can_write, (r.buffer_idx + 1) % BUFFER_SLOTS,
-                             r.buffer_idx)
-    buffer_count = torch.where(
-        can_write, torch.clamp(r.buffer_count + 1, max=BUFFER_SLOTS),
-        r.buffer_count)
-    last_tick_added = torch.where(can_write, tick, r.last_tick_added)
+    with span("replay.ring"):
+        # Mid-episode: checkpoint cadence and collision writes.
+        tick = states.tick + 1
+        live = ~done & r.activated & ~r.saved_in_replay_buffer
+        save_cp = live & (tick % int(CP_STEP_SEC * freq) == 0)
+        cp_slot = r.ep_cp_count % EP_CP_SLOTS
+        ep_cp_count = r.ep_cp_count + save_cp.to(torch.int32)
+        # a new drone pair or a new obstacle hit
+        collided = torch.any(new_state.prev_coll_ids & ~states.prev_coll_ids,
+                             -1)
+        if cfg.use_obstacles:
+            collided = collided | torch.any(
+                new_state.prev_obst_hits & ~states.prev_obst_hits, -1)
+        can_write = (live & collided & (tick > int(1.5 * freq))
+                     & (tick - r.last_tick_added > int(5 * freq))
+                     & (ep_cp_count >= steps_ago))
+        # The checkpoint from 1.5 s ago: (count_after - 3) % 6 is never this
+        # tick's write slot count_before % 6.
+        read_slot = (ep_cp_count - steps_ago) % EP_CP_SLOTS
+        slots = torch.arange(BUFFER_SLOTS, device=dev)
+        written = can_write[:, None] & (slots == r.buffer_idx[:, None])
+        num_replayed = torch.where(written, torch.zeros_like(r.num_replayed),
+                                   r.num_replayed)
+        buffer_idx = torch.where(can_write, (r.buffer_idx + 1) % BUFFER_SLOTS,
+                                 r.buffer_idx)
+        buffer_count = torch.where(
+            can_write, torch.clamp(r.buffer_count + 1, max=BUFFER_SLOTS),
+            r.buffer_count)
+        last_tick_added = torch.where(can_write, tick, r.last_tick_added)
 
-    # Episode end: the can-fly gate, then replay or fresh reset.
-    hist_slot = torch.arange(CRASH_WINDOW, device=dev) == (
-        r.episode_count % CRASH_WINDOW)[:, None]
-    hist = torch.where(done[:, None] & hist_slot,
-                       states.crashes_last_episode[:, None].to(
-                           r.crash_history.dtype), r.crash_history)
-    episode_count = r.episode_count + done.to(torch.int32)
-    window = torch.clamp(episode_count, max=CRASH_WINDOW).to(hist.dtype)
-    mean_crashes = torch.abs(hist.sum(-1) / torch.clamp(window, min=1.0))
-    activated = r.activated | (done & (episode_count >= 10)
-                               & (mean_crashes < 1.0))
+        # Episode end: the can-fly gate, then replay or fresh reset.
+        hist_slot = torch.arange(CRASH_WINDOW, device=dev) == (
+            r.episode_count % CRASH_WINDOW)[:, None]
+        hist = torch.where(done[:, None] & hist_slot,
+                           states.crashes_last_episode[:, None].to(
+                               r.crash_history.dtype), r.crash_history)
+        episode_count = r.episode_count + done.to(torch.int32)
+        window = torch.clamp(episode_count, max=CRASH_WINDOW).to(hist.dtype)
+        mean_crashes = torch.abs(hist.sum(-1) / torch.clamp(window, min=1.0))
+        activated = r.activated | (done & (episode_count >= 10)
+                                   & (mean_crashes < 1.0))
 
-    u_choice = _unit_draw(draws, "replay_choice", e, gen, dev)
-    u_sample = _unit_draw(draws, "replay_u", e, gen, dev)
-    valid = torch.clamp(buffer_count, min=1)
-    choice = torch.minimum((u_choice * valid).to(torch.int32), valid - 1)
-    chosen = slots == choice[:, None]
-    # The count before this tick's write: a slot rewritten on the tick its
-    # episode ends keeps its old count's veto.
-    replayable = torch.sum(torch.where(chosen, r.num_replayed, 0),
-                           -1) < MAX_REPLAYS
-    did_replay = (done & activated & (buffer_count > 0) & replayable
-                  & (u_sample < sample_prob))
-    num_replayed = num_replayed + (did_replay[:, None] & chosen).to(
-        torch.int32)
-    replayed_events = r.replayed_events + did_replay.to(torch.int32)
-    needs_reset = done & ~did_replay
+        u_choice = _unit_draw(draws, "replay_choice", e, gen, dev)
+        u_sample = _unit_draw(draws, "replay_u", e, gen, dev)
+        valid = torch.clamp(buffer_count, min=1)
+        choice = torch.minimum((u_choice * valid).to(torch.int32), valid - 1)
+        chosen = slots == choice[:, None]
+        # The count before this tick's write: a slot rewritten on the tick its
+        # episode ends keeps its old count's veto.
+        replayable = torch.sum(torch.where(chosen, r.num_replayed, 0),
+                               -1) < MAX_REPLAYS
+        did_replay = (done & activated & (buffer_count > 0) & replayable
+                      & (u_sample < sample_prob))
+        num_replayed = num_replayed + (did_replay[:, None] & chosen).to(
+            torch.int32)
+        replayed_events = r.replayed_events + did_replay.to(torch.int32)
+        needs_reset = done & ~did_replay
 
     # The tick's one device-to-host read.
-    fire_cp, fire_write, fire_replay, fire_reset = torch.stack([
-        save_cp.any(), can_write.any(), did_replay.any(),
-        needs_reset.any()]).tolist()
-    if fire_write:
-        item = read_slots(r.ep_checkpoints, read_slot)   # before the cp write
-        write_slots(r.buffer, r.buffer_idx, item, can_write)
-    if fire_cp:
-        write_slots(r.ep_checkpoints, cp_slot, new_state, save_cp)
+    with span("env.sync"):
+        fire_cp, fire_write, fire_replay, fire_reset = torch.stack([
+            save_cp.any(), can_write.any(), did_replay.any(),
+            needs_reset.any()]).tolist()
+    with span("replay.ring"):
+        if fire_write:
+            # before the checkpoint write
+            item = read_slots(r.ep_checkpoints, read_slot)
+            write_slots(r.buffer, r.buffer_idx, item, can_write)
+        if fire_cp:
+            write_slots(r.ep_checkpoints, cp_slot, new_state, save_cp)
+        new_rstates = r.replace(
+            ep_cp_count=torch.where(done, zero, ep_cp_count),
+            buffer_count=buffer_count, buffer_idx=buffer_idx,
+            num_replayed=num_replayed,
+            last_tick_added=torch.where(done, zero + NO_TICK,
+                                        last_tick_added),
+            saved_in_replay_buffer=torch.where(done, did_replay,
+                                               r.saved_in_replay_buffer),
+            activated=activated, crash_history=hist,
+            episode_count=episode_count, replayed_events=replayed_events)
+        info["replay/replay_rate"] = (replayed_events.to(torch.float32)
+                                      / torch.clamp(episode_count, min=1))
+        info["replay/replay_buffer_size"] = buffer_count
+        info["replay/activated"] = activated
     if fire_replay:
-        replay_env = read_slots(r.buffer, choice)
-        replay_env = replay_env.replace(
-            collisions_per_episode=zero, collisions_after_settle=zero,
-            obst_collisions_per_episode=zero,
-            obst_collisions_after_settle=zero,
-            rew_coeff=new_state.rew_coeff)
-        replay_obs, _ = _compute_obs(
-            cfg, replay_env.dyn, replay_env.scenario.goals,
-            replay_env.gyro_bias, gen, draws.get("replay_sensor"),
-            obstacles_of(replay_env))
-        new_state = _select_done(did_replay, replay_env, new_state)
-        obs = torch.where(did_replay[:, None, None], replay_obs, obs)
+        with span("replay.restore"):
+            replay_env = read_slots(r.buffer, choice)
+            replay_env = replay_env.replace(
+                collisions_per_episode=zero, collisions_after_settle=zero,
+                obst_collisions_per_episode=zero,
+                obst_collisions_after_settle=zero,
+                rew_coeff=new_state.rew_coeff)
+            replay_obs, _ = _compute_obs(
+                cfg, replay_env.dyn, replay_env.scenario.goals,
+                replay_env.gyro_bias, gen, draws.get("replay_sensor"),
+                obstacles_of(replay_env))
+            new_state = _select_done(did_replay, replay_env, new_state)
+            obs = torch.where(did_replay[:, None, None], replay_obs, obs)
     if fire_reset:
-        # a fresh episode keeps the env's obstacle density and size unless
-        # they are domain-random
-        reset_states, reset_obs = reset_like(cfg, params, gen, new_state)
-        new_state = _select_done(needs_reset, reset_states, new_state)
-        obs = torch.where(needs_reset[:, None, None], reset_obs, obs)
-
-    new_rstates = r.replace(
-        ep_cp_count=torch.where(done, zero, ep_cp_count),
-        buffer_count=buffer_count, buffer_idx=buffer_idx,
-        num_replayed=num_replayed,
-        last_tick_added=torch.where(done, zero + NO_TICK, last_tick_added),
-        saved_in_replay_buffer=torch.where(done, did_replay,
-                                           r.saved_in_replay_buffer),
-        activated=activated, crash_history=hist,
-        episode_count=episode_count, replayed_events=replayed_events)
-    info["replay/replay_rate"] = (replayed_events.to(torch.float32)
-                                  / torch.clamp(episode_count, min=1))
-    info["replay/replay_buffer_size"] = buffer_count
-    info["replay/activated"] = activated
+        with span("env.reset_done"):
+            # a fresh episode keeps the env's obstacle density and size
+            # unless they are domain-random
+            reset_states, reset_obs = reset_like(cfg, params, gen, new_state)
+            new_state = _select_done(needs_reset, reset_states, new_state)
+            obs = torch.where(needs_reset[:, None, None], reset_obs, obs)
     return (new_state, new_rstates, obs, rew,
             done[:, None].expand(rew.shape), info)

@@ -87,6 +87,7 @@ from quadswarm_tpu_torch.utils.checkpoint import (
     checkpoint_dir, latest_checkpoint, load_checkpoint, save_checkpoint,
 )
 from quadswarm_tpu_torch.utils.struct import map_fields, resolve_device
+from quadswarm_tpu_torch.utils.tracing import span
 
 
 class MixedTransition(NamedTuple):
@@ -206,39 +207,49 @@ def mixed_rollout(env_cfg: EnvConfig, dyn_params, heads: StackedPolicies,
     env_states = push_coeffs(env_states, coeff_table, assignment)
     steps, infos = [], []
     for _ in range(ppo_cfg.rollout):
-        sel = assignment.reshape(e * n)
-        mean, log_std, value = heads.forward_all(obs.reshape(e * n, -1), norm)
-        mean = select_policy(mean, sel)
-        log_std = select_policy(log_std, sel)
-        value = select_policy(value, sel)
-        actions = sample_actions(gen, mean, log_std)
-        log_prob = gaussian_log_prob(mean, log_std, actions)
-        actions_e = actions.reshape(e, n, -1)
-        if use_replay:
-            env_states, replay_states, next_obs, rew, dones, info = \
-                batched_replay_step(env_cfg, dyn_params,
-                                    ppo_cfg.replay_sample_prob, env_states,
-                                    replay_states, actions_e, gen)
-        else:
-            env_states, next_obs, rew, dones, info = batched_env_step(
-                env_cfg, dyn_params, env_states, actions_e, gen)
-        steps.append(MixedTransition(
-            obs=obs, actions=actions_e, log_prob=log_prob.reshape(e, n),
-            value=value.reshape(e, n),
-            reward=torch.clamp(rew, -ppo_cfg.reward_clip,
-                               ppo_cfg.reward_clip),
-            done=dones, assignment=assignment))
-        infos.append(info)
-        # the envs that ended an episode draw new assignments
-        fresh = torch.randint(0, p_count, (e, n), generator=gen,
-                              device=obs.device)
-        assignment = torch.where(dones.any(-1)[:, None], fresh, assignment)
-        env_states = push_coeffs(env_states, coeff_table, assignment)
-        obs = next_obs
-    _, _, values = heads.forward_all(obs.reshape(e * n, -1), norm)
-    last_value = select_policy(values, assignment.reshape(e * n))
-    traj = MixedTransition(*(torch.stack(x) for x in zip(*steps)))
-    info = {k: torch.stack([i[k] for i in infos]) for k in infos[0]}
+        with span("rollout.tick"):
+            sel = assignment.reshape(e * n)
+            with span("rollout.policy"):
+                mean, log_std, value = heads.forward_all(
+                    obs.reshape(e * n, -1), norm)
+                mean = select_policy(mean, sel)
+                log_std = select_policy(log_std, sel)
+                value = select_policy(value, sel)
+            with span("rollout.sample"):
+                actions = sample_actions(gen, mean, log_std)
+                log_prob = gaussian_log_prob(mean, log_std, actions)
+            actions_e = actions.reshape(e, n, -1)
+            with span("rollout.env_step"):
+                if use_replay:
+                    env_states, replay_states, next_obs, rew, dones, info = \
+                        batched_replay_step(env_cfg, dyn_params,
+                                            ppo_cfg.replay_sample_prob,
+                                            env_states, replay_states,
+                                            actions_e, gen)
+                else:
+                    env_states, next_obs, rew, dones, info = \
+                        batched_env_step(env_cfg, dyn_params, env_states,
+                                         actions_e, gen)
+            steps.append(MixedTransition(
+                obs=obs, actions=actions_e, log_prob=log_prob.reshape(e, n),
+                value=value.reshape(e, n),
+                reward=torch.clamp(rew, -ppo_cfg.reward_clip,
+                                   ppo_cfg.reward_clip),
+                done=dones, assignment=assignment))
+            infos.append(info)
+            # the envs that ended an episode draw new assignments
+            fresh = torch.randint(0, p_count, (e, n), generator=gen,
+                                  device=obs.device)
+            assignment = torch.where(dones.any(-1)[:, None], fresh,
+                                     assignment)
+            env_states = push_coeffs(env_states, coeff_table, assignment)
+            obs = next_obs
+    with span("rollout.policy"):
+        _, _, values = heads.forward_all(obs.reshape(e * n, -1), norm)
+        last_value = select_policy(values, assignment.reshape(e * n))
+    with span("rollout.stack"):
+        traj = MixedTransition(*(torch.stack(x) for x in zip(*steps)))
+        info = {k: torch.stack([i[k] for i in infos]) for k in infos[0]}
     return (env_states, replay_states, obs, assignment, traj,
             last_value.reshape(e, n), info)
 
@@ -344,7 +355,6 @@ def stacked_sgd_step(heads: StackedPolicies, optimizer, ppo_cfg: PPOConfig,
     and denominators are global, each rank's loss is its part of the
     global one, and the gradients and losses are summed over the mesh."""
     p_count = heads.num_policies
-    stats = masked_advantage_stats(batch[4], assign, p_count, mesh)
 
     def loss_fn(params, buffers, nrm, pid, st):
         forward = lambda x: functional_call(heads.base, (params, buffers),
@@ -353,19 +363,21 @@ def stacked_sgd_step(heads: StackedPolicies, optimizer, ppo_cfg: PPOConfig,
         return masked_ppo_loss(forward, ppo_cfg, batch, mask, _norm_of(nrm),
                                stats=st)
 
-    pids = torch.arange(p_count, device=assign.device)
-    # detached: the gradients are torch.func's, no outer graph is built
-    params = {k: v.detach() for k, v in heads.params.items()}
-    grads, losses = torch.vmap(grad_and_value(loss_fn),
-                               in_dims=(0, 0, 0, 0, 0))(
-        params, heads.buffers, _norm_dict(norm), pids, stats)
-    grads = [grads[k] for k in heads.params]
-    all_reduce_grads_(mesh, grads, average=False)
-    losses = all_sum(mesh, losses)
-    clip_by_global_norm_stacked_(grads, ppo_cfg.max_grad_norm)
-    for p, g in zip(heads.params.values(), grads):
-        p.grad = g
-    optimizer.step()
+    with span("learner.minibatch"):
+        stats = masked_advantage_stats(batch[4], assign, p_count, mesh)
+        pids = torch.arange(p_count, device=assign.device)
+        # detached: the gradients are torch.func's, no outer graph is built
+        params = {k: v.detach() for k, v in heads.params.items()}
+        grads, losses = torch.vmap(grad_and_value(loss_fn),
+                                   in_dims=(0, 0, 0, 0, 0))(
+            params, heads.buffers, _norm_dict(norm), pids, stats)
+        grads = [grads[k] for k in heads.params]
+        all_reduce_grads_(mesh, grads, average=False)
+        losses = all_sum(mesh, losses)
+        clip_by_global_norm_stacked_(grads, ppo_cfg.max_grad_norm)
+        for p, g in zip(heads.params.values(), grads):
+            p.grad = g
+        optimizer.step()
     return losses
 
 
@@ -423,7 +435,7 @@ def mixed_train_iteration(env_cfg: EnvConfig, dyn_params,
                             replay_states=replay_states, norm=norm)
     _sync(obs.device)
     t1 = time.perf_counter()
-    with torch.no_grad():
+    with torch.no_grad(), span("learner.gae"):
         advantages, returns = compute_gae(traj, last_value, ppo_cfg.gamma,
                                           ppo_cfg.gae_lambda)
         if norm is not None and (norm.obs is not None

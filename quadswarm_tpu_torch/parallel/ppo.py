@@ -10,7 +10,10 @@ The JAX package runs an iteration as one jitted program over a device mesh;
 here the rollout is a Python loop over ticks (one device-to-host sync a
 tick, for the episode ends and the replay branches) and the learner a
 Python loop over minibatches with no sync at all: losses stay on the device
-until the caller reads them.
+until the caller reads them.  Under a profiler, spans (`utils/tracing.py`)
+mark each tick (`rollout.tick` holding `rollout.policy`, `rollout.sample`
+and `rollout.env_step`), the stacks after the loop, GAE and each
+minibatch.
 
 On a mesh of D ranks (`parallel/mesh.py`, one process a card) each rank
 rolls out its own E / D envs from its own generator, and the learner is
@@ -59,6 +62,7 @@ from quadswarm_tpu_torch.utils.metrics import (
     episode_stat_sums, stats_from_sums,
 )
 from quadswarm_tpu_torch.utils.struct import map_fields, resolve_device
+from quadswarm_tpu_torch.utils.tracing import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -179,30 +183,38 @@ def collect_rollout(env_cfg: EnvConfig, dyn_params, model: ActorCritic,
 
     steps, infos = [], []
     for _ in range(ppo_cfg.rollout):
-        mean, log_std, value = policy_heads(model, obs.reshape(e * n, -1),
-                                            norm)
-        actions = sample_actions(gen, mean, log_std)
-        log_prob = gaussian_log_prob(mean, log_std, actions)
-        actions_e = actions.reshape(e, n, -1)
-        if use_replay:
-            env_states, replay_states, next_obs, rew, dones, info = \
-                batched_replay_step(env_cfg, dyn_params,
-                                    ppo_cfg.replay_sample_prob, env_states,
-                                    replay_states, actions_e, gen)
-        else:
-            env_states, next_obs, rew, dones, info = batched_env_step(
-                env_cfg, dyn_params, env_states, actions_e, gen)
-        steps.append(Transition(
-            obs=obs, actions=actions_e, log_prob=log_prob.reshape(e, n),
-            value=value.reshape(e, n),
-            reward=torch.clamp(rew, -ppo_cfg.reward_clip,
-                               ppo_cfg.reward_clip),
-            done=dones))
-        infos.append(info)
-        obs = next_obs
-    _, _, last_value = policy_heads(model, obs.reshape(e * n, -1), norm)
-    traj = Transition(*(torch.stack(x) for x in zip(*steps)))
-    info = {k: torch.stack([i[k] for i in infos]) for k in infos[0]}
+        with span("rollout.tick"):
+            with span("rollout.policy"):
+                mean, log_std, value = policy_heads(
+                    model, obs.reshape(e * n, -1), norm)
+            with span("rollout.sample"):
+                actions = sample_actions(gen, mean, log_std)
+                log_prob = gaussian_log_prob(mean, log_std, actions)
+            actions_e = actions.reshape(e, n, -1)
+            with span("rollout.env_step"):
+                if use_replay:
+                    env_states, replay_states, next_obs, rew, dones, info = \
+                        batched_replay_step(env_cfg, dyn_params,
+                                            ppo_cfg.replay_sample_prob,
+                                            env_states, replay_states,
+                                            actions_e, gen)
+                else:
+                    env_states, next_obs, rew, dones, info = \
+                        batched_env_step(env_cfg, dyn_params, env_states,
+                                         actions_e, gen)
+            steps.append(Transition(
+                obs=obs, actions=actions_e, log_prob=log_prob.reshape(e, n),
+                value=value.reshape(e, n),
+                reward=torch.clamp(rew, -ppo_cfg.reward_clip,
+                                   ppo_cfg.reward_clip),
+                done=dones))
+            infos.append(info)
+            obs = next_obs
+    with span("rollout.policy"):
+        _, _, last_value = policy_heads(model, obs.reshape(e * n, -1), norm)
+    with span("rollout.stack"):
+        traj = Transition(*(torch.stack(x) for x in zip(*steps)))
+        info = {k: torch.stack([i[k] for i in infos]) for k in infos[0]}
     return env_states, obs, replay_states, traj, last_value.reshape(e, n), info
 
 
@@ -434,12 +446,14 @@ def sgd_epochs(model: ActorCritic, optimizer, ppo_cfg: PPOConfig,
             perms=None if perms is None else perms[epoch],
             shard=(rank, world))
         for i in range(batched[0].shape[0]):
-            loss, metrics = ppo_loss(model, ppo_cfg,
-                                     tuple(x[i] for x in batched), norm,
-                                     mesh)
-            optimizer.zero_grad(set_to_none=True)
-            loss.backward()
-            apply_gradients(model, optimizer, ppo_cfg.max_grad_norm, mesh)
+            with span("learner.minibatch"):
+                loss, metrics = ppo_loss(model, ppo_cfg,
+                                         tuple(x[i] for x in batched), norm,
+                                         mesh)
+                optimizer.zero_grad(set_to_none=True)
+                loss.backward()
+                apply_gradients(model, optimizer, ppo_cfg.max_grad_norm,
+                                mesh)
             rows += batched[0].shape[1]
     sgd_epochs.rows = rows
     return mean_metrics(metrics, mesh)
@@ -467,7 +481,7 @@ def train_iteration(env_cfg: EnvConfig, dyn_params, model: ActorCritic,
         replay_states, norm=norm_state)
     _sync(obs.device)
     t1 = time.perf_counter()
-    with torch.no_grad():
+    with torch.no_grad(), span("learner.gae"):
         advantages, returns = compute_gae(traj, last_value, ppo_cfg.gamma,
                                           ppo_cfg.gae_lambda)
         # The normalizers fold in the rollout before SGD; GAE above used

@@ -12,7 +12,14 @@ Port of quadswarm_tpu/utils/debug.py:
   design (ROADMAP.md Queue 3).
 - `trace(log_dir)`: a torch.profiler context over the CPU and the card
   that writes `<log_dir>/trace.json`, a Chrome trace (`train.py
-  --profile_dir`).
+  --profile_dir`).  The program's spans (`utils/tracing.py`: a rollout's
+  `rollout.tick`, `rollout.policy`, `rollout.sample`, `rollout.env_step`
+  and `rollout.stack`; the env step's `env.step` with its stages
+  `env.scenario` ... `env.stats`, `env.sync`, `env.reset_done`; the
+  replay's `replay.ring` and `replay.restore`; the learner's
+  `learner.gae` and `learner.minibatch`) show in it beside the kernels.
+  With no profiler recording they cost one C call each and record
+  nothing; `portbench/run.py --trace 1` reads them too.
 """
 from __future__ import annotations
 
@@ -20,6 +27,8 @@ import contextlib
 import os
 
 import torch
+
+from quadswarm_tpu_torch.utils.tracing import annotated
 
 _CHECKS = ("Reward is not finite. Debug this!",
            "Drone position is not finite. Debug this!")
@@ -89,7 +98,8 @@ def trace(log_dir: str):
     profiler = torch.profiler.profile(activities=activities)
     profiler.start()
     try:
-        yield profiler
+        with annotated():
+            yield profiler
     finally:
         profiler.stop()
         os.makedirs(log_dir, exist_ok=True)
