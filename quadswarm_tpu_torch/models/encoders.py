@@ -42,12 +42,16 @@ class Dense(nn.Linear):
     compute_dtype = torch.float32
 
     def forward(self, x):
+        return self.linear(x, self.weight, self.bias)
+
+    def linear(self, x, weight, bias=None):
+        """x times `weight` plus `bias`, this layer's own or slices of them,
+        cast as the layer casts."""
         dt = self.compute_dtype
-        if x.dtype == dt == self.weight.dtype:
-            return super().forward(x)     # no cast to dispatch
+        if x.dtype == dt == weight.dtype:
+            return nn.functional.linear(x, weight, bias)   # no cast to dispatch
         return nn.functional.linear(
-            x.to(dt), self.weight.to(dt),
-            None if self.bias is None else self.bias.to(dt))
+            x.to(dt), weight.to(dt), None if bias is None else bias.to(dt))
 
 
 class LayerNorm(nn.LayerNorm):
@@ -99,10 +103,13 @@ class MLP(nn.Module):
         self.act = _ACTS[act]
         self.act_last = act_last
 
-    def forward(self, x):
-        for i, layer in enumerate(self.layers):
-            x = layer(x)
-            if self.act_last or i < len(self.layers) - 1:
+    def forward(self, x, start: int = 0):
+        """The layers from `start` on, each followed by the activation (the
+        last one only with `act_last`)."""
+        last = len(self.layers) - 1
+        for i in range(start, last + 1):
+            x = self.layers[i](x)
+            if self.act_last or i < last:
                 x = self.act(x)
         return x
 
@@ -167,7 +174,11 @@ class NeighborEncoderAttention(nn.Module):
     """CoRL-2021 attention over neighbors: per-neighbor embeddings e_i from
     (self obs, neighbor obs), values h_i, scalar scores from (e_i, mean e),
     softmax-weighted sum of the values.  Inside `recorded_attention` each
-    forward appends its softmax weights (b, k) to `sink`."""
+    forward appends its softmax weights (b, k) to `sink`.
+
+    The scores' first layer W [e_i; mean e] + c is computed as
+    W_e e_i + (W_m mean e + c), W = [W_e | W_m] split by input columns: the
+    mean's term once an agent, and no (b, k, 2 * hidden) concatenation."""
 
     sink = None
 
@@ -186,14 +197,26 @@ class NeighborEncoderAttention(nn.Module):
         b, k = neighbor_obs.shape[0], self.num_neighbors
         nb = neighbor_obs.reshape(b, k, self.neighbor_obs_dim)
         self_rep = self_obs[:, None, :].expand(b, k, self_obs.shape[-1])
+        # This cat stays: it is only the two observations wide, and split, its
+        # layer would add a broadcast pass over (b, k, hidden).
         e = self.embedding_mlp(torch.cat([self_rep, nb], -1))
         h = self.neighbor_value_mlp(e)
-        e_mean = e.mean(1, keepdim=True).expand_as(e)
-        scores = self.attention_mlp(torch.cat([e, e_mean], -1))[..., 0]
-        alpha = torch.softmax(scores, 1)
+        scores = self.attention_mlp(self._first_score_layer(e), start=1)
+        alpha = torch.softmax(scores[..., 0], 1)
         if self.sink is not None:
             self.sink.append(alpha)
         return torch.sum(alpha[..., None] * h, 1)
+
+    def _first_score_layer(self, e):
+        """attention_mlp's first layer and activation on [e_i; mean e], (b, k,
+        hidden), from column views of its weight (a (hidden, 2 * hidden)
+        parameter as flax has it)."""
+        layer = self.attention_mlp.layers[0]
+        # split, not two slices: its backward is one cat of the two grads
+        w_e, w_m = layer.weight.split(e.shape[-1], 1)
+        per_agent = layer.linear(e.mean(1), w_m, layer.bias)
+        return self.attention_mlp.act(layer.linear(e, w_e)
+                                      + per_agent[:, None])
 
 
 @contextlib.contextmanager
