@@ -305,9 +305,10 @@ def _compute_obs(cfg: EnvConfig, dyn: DroneState, goals, gyro_bias, gen,
             parts.append(neighbor_obs(dyn.pos, dyn.vel, k, lo, hi))
     if cfg.use_obstacles:
         active, obst_pos, size = obstacles
-        parts.append(obst.surround_sdf_obs(dyn.pos[..., :2],
-                                           obst_pos[..., :2], active,
-                                           size / 2.0))
+        with span("env.obstacle_sdf"):
+            parts.append(obst.surround_sdf_obs(dyn.pos[..., :2],
+                                               obst_pos[..., :2], active,
+                                               size / 2.0))
     return torch.cat(parts, -1).to(cfg.dtype), gyro_bias
 
 
@@ -499,7 +500,9 @@ def _step(cfg: EnvConfig, params, states: EnvState, actions, gen,
           draws: dict):
     """Stages 1-7 of the tick without the auto-reset; done is (E,).  Each
     stage is a span of `utils/tracing.py`: env.scenario, env.dynamics,
-    env.collisions, env.reward, env.interactions, env.obs, env.stats."""
+    env.collisions, env.reward, env.interactions, env.obs, env.stats; with
+    obstacles, env.obstacle_hits (in env.collisions) and env.obstacle_sdf
+    (in env.obs, and in a reset's observation)."""
     dtype = cfg.dtype
     freq = cfg.control_freq
     goals = states.scenario.goals
@@ -548,27 +551,29 @@ def _step(cfg: EnvConfig, params, states: EnvState, actions, gen,
 
         # Obstacle collisions: a hit counts on the tick it starts.
         if cfg.use_obstacles:
-            obst_hit, obst_idx = obst.obstacle_collisions(
-                dyn.pos[..., :2], states.obst_pos[..., :2],
-                states.obst_active, states.obst_size / 2.0, arm)
-            curr_obst = obst_hit & ~states.prev_obst_hits
-            n_obst = torch.sum(curr_obst, -1).to(torch.int32)
-            settled = curr_obst & grace[:, None]
-            rel_dist = torch.linalg.vector_norm(dyn.pos - goals, dim=-1)
-            binned = lambda far: torch.sum(settled & (rel_dist > far),
-                                           -1).to(torch.int32)
-            obst_counts = dict(
-                obst_collisions_per_episode=(
-                    states.obst_collisions_per_episode + n_obst),
-                obst_collisions_after_settle=(
-                    states.obst_collisions_after_settle
-                    + torch.where(grace, n_obst, zero_i)),
-                obst_coll_dist_3_5=states.obst_coll_dist_3_5 + binned(3.5),
-                obst_coll_dist_5=states.obst_coll_dist_5 + binned(5.0),
-                agent_col_obst=torch.where(
-                    (n_obst > 0)[:, None] & settled,
-                    torch.zeros_like(states.agent_col_obst),
-                    states.agent_col_obst))
+            with span("env.obstacle_hits"):
+                obst_hit, obst_idx = obst.obstacle_collisions(
+                    dyn.pos[..., :2], states.obst_pos[..., :2],
+                    states.obst_active, states.obst_size / 2.0, arm)
+                curr_obst = obst_hit & ~states.prev_obst_hits
+                n_obst = torch.sum(curr_obst, -1).to(torch.int32)
+                settled = curr_obst & grace[:, None]
+                rel_dist = torch.linalg.vector_norm(dyn.pos - goals, dim=-1)
+                binned = lambda far: torch.sum(settled & (rel_dist > far),
+                                               -1).to(torch.int32)
+                obst_counts = dict(
+                    obst_collisions_per_episode=(
+                        states.obst_collisions_per_episode + n_obst),
+                    obst_collisions_after_settle=(
+                        states.obst_collisions_after_settle
+                        + torch.where(grace, n_obst, zero_i)),
+                    obst_coll_dist_3_5=(states.obst_coll_dist_3_5
+                                        + binned(3.5)),
+                    obst_coll_dist_5=states.obst_coll_dist_5 + binned(5.0),
+                    agent_col_obst=torch.where(
+                        (n_obst > 0)[:, None] & settled,
+                        torch.zeros_like(states.agent_col_obst),
+                        states.agent_col_obst))
         else:
             obst_hit = curr_obst = torch.zeros_like(unique_ids)
             obst_counts = {}

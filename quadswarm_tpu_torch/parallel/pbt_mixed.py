@@ -87,7 +87,7 @@ from quadswarm_tpu_torch.utils.checkpoint import (
     checkpoint_dir, latest_checkpoint, load_checkpoint, save_checkpoint,
 )
 from quadswarm_tpu_torch.utils.struct import map_fields, resolve_device
-from quadswarm_tpu_torch.utils.tracing import span
+from quadswarm_tpu_torch.utils.tracing import count, span
 
 
 class MixedTransition(NamedTuple):
@@ -200,21 +200,38 @@ def mixed_rollout(env_cfg: EnvConfig, dyn_params, heads: StackedPolicies,
                   replay_states=None, norm: NormalizerState | None = None):
     """`ppo_cfg.rollout` ticks of one shared env batch under P policies.
     Returns (env_states', replay_states', obs', assignment', MixedTransition
-    stacked over T, last_value (E, N), infos stacked over T)."""
+    stacked over T, last_value (E, N), infos stacked over T).
+
+    Spans (`utils/tracing.py`): `pbt.heads` (every head on every row),
+    `pbt.select` (each row's head), `pbt.coeffs` (the coefficient push),
+    `pbt.assign` (the redraw); counters `pbt.head_rows` and
+    `pbt.agent_rows`, the rows the heads computed and the rows they
+    served."""
     e, n = assignment.shape
     p_count = heads.num_policies
     use_replay = ppo_cfg.replay_sample_prob > 0.0 and replay_states is not None
-    env_states = push_coeffs(env_states, coeff_table, assignment)
+
+    def heads_all(obs_flat):
+        """Every head on every row; the rows computed and served are
+        counted (host integers)."""
+        with span("pbt.heads"):
+            outs = heads.forward_all(obs_flat, norm)
+        count("pbt.head_rows", p_count * e * n)
+        count("pbt.agent_rows", e * n)
+        return outs
+
+    with span("pbt.coeffs"):
+        env_states = push_coeffs(env_states, coeff_table, assignment)
     steps, infos = [], []
     for _ in range(ppo_cfg.rollout):
         with span("rollout.tick"):
             sel = assignment.reshape(e * n)
             with span("rollout.policy"):
-                mean, log_std, value = heads.forward_all(
-                    obs.reshape(e * n, -1), norm)
-                mean = select_policy(mean, sel)
-                log_std = select_policy(log_std, sel)
-                value = select_policy(value, sel)
+                mean, log_std, value = heads_all(obs.reshape(e * n, -1))
+                with span("pbt.select"):
+                    mean = select_policy(mean, sel)
+                    log_std = select_policy(log_std, sel)
+                    value = select_policy(value, sel)
             with span("rollout.sample"):
                 actions = sample_actions(gen, mean, log_std)
                 log_prob = gaussian_log_prob(mean, log_std, actions)
@@ -238,15 +255,18 @@ def mixed_rollout(env_cfg: EnvConfig, dyn_params, heads: StackedPolicies,
                 done=dones, assignment=assignment))
             infos.append(info)
             # the envs that ended an episode draw new assignments
-            fresh = torch.randint(0, p_count, (e, n), generator=gen,
-                                  device=obs.device)
-            assignment = torch.where(dones.any(-1)[:, None], fresh,
-                                     assignment)
-            env_states = push_coeffs(env_states, coeff_table, assignment)
+            with span("pbt.assign"):
+                fresh = torch.randint(0, p_count, (e, n), generator=gen,
+                                      device=obs.device)
+                assignment = torch.where(dones.any(-1)[:, None], fresh,
+                                         assignment)
+            with span("pbt.coeffs"):
+                env_states = push_coeffs(env_states, coeff_table, assignment)
             obs = next_obs
     with span("rollout.policy"):
-        _, _, values = heads.forward_all(obs.reshape(e * n, -1), norm)
-        last_value = select_policy(values, assignment.reshape(e * n))
+        _, _, values = heads_all(obs.reshape(e * n, -1))
+        with span("pbt.select"):
+            last_value = select_policy(values, assignment.reshape(e * n))
     with span("rollout.stack"):
         traj = MixedTransition(*(torch.stack(x) for x in zip(*steps)))
         info = {k: torch.stack([i[k] for i in infos]) for k in infos[0]}

@@ -7,8 +7,8 @@ records.
 
 There is one switch and it is the profiler's: `span(name)` records while
 `torch.profiler.profile` (or `utils/debug.py::trace`) is recording, and is
-a shared no-op context otherwise, which costs one C call and makes no
-allocation, no device work and no clock read.
+a shared no-op context otherwise, which costs a Python call and one C
+call and makes no allocation, no device work and no clock read.
 
 While on, a span records its name, its parent (the span open around it),
 the index of its tick (each `rollout.tick` span opens the next one; the
@@ -34,8 +34,13 @@ beside the kernels; elsewhere it adds no event to the profiler's, so a
 profile of the device alone reads the same operations with spans as
 without.
 
-Who reads the spans: `portbench/metrics/*.py` (the benchmark's `--trace
-1` run) and `portbench/tools/gaps_by_span.py`; `debug.trace` shows them.
+A counter, `count(name, n)`, adds a host-known integer to the stretch's
+total of `name` under the same switch: it never reads the device.
+`counts()` returns the newest stretch's totals.
+
+Who reads the spans and counters: `portbench/metrics/*.py` (the
+benchmark's `--trace 1` run) and `portbench/tools/gaps_by_span.py`;
+`debug.trace` shows the spans.
 `launch_times` and `span_at` place a profile's device operations in the
 spans that launched them, on the host's clock.
 """
@@ -90,6 +95,7 @@ class _Store:
         self.stack = []          # indices of the open spans
         self.ticks = 0
         self.dropped = 0
+        self.counts = {}         # counter name -> total
         self.pool = []
 
     def new_stretch(self) -> None:
@@ -97,6 +103,7 @@ class _Store:
             self.pool.extend(e for e in r[5:] if e is not None)
         self.records, self.stack = [], []
         self.ticks = self.dropped = 0
+        self.counts = {}
         self.generation += 1
 
     def event(self):
@@ -154,16 +161,34 @@ class _Live:
         return False
 
 
-def span(name: str):
-    """A context that records the enclosed block as span `name` while a
-    torch profiler records, and does nothing otherwise."""
+def _recording() -> bool:
+    """Whether a profiler records; a first call that finds it on after one
+    that found it off starts a new stretch."""
     if _profiling():
         if not _STORE.on:
             _STORE.new_stretch()
             _STORE.on = True
-        return _Live(name)
+        return True
     _STORE.on = False
-    return _OFF
+    return False
+
+
+def span(name: str):
+    """A context that records the enclosed block as span `name` while a
+    torch profiler records, and does nothing otherwise."""
+    return _Live(name) if _recording() else _OFF
+
+
+def count(name: str, n: int) -> None:
+    """Adds the host integer `n` to counter `name` while a torch profiler
+    records, and does nothing otherwise."""
+    if _recording():
+        _STORE.counts[name] = _STORE.counts.get(name, 0) + int(n)
+
+
+def counts() -> dict:
+    """The counters of the newest profiled stretch: name -> total."""
+    return dict(_STORE.counts)
 
 
 def spans() -> list:
