@@ -100,7 +100,7 @@ Phases, each raising on failure:
      --pbt_mix_policies_in_one_env=True at full width (8 stacked policies
      sharing 512 envs x 8 x 128): 2 iterations (split, agent-steps/s, K1
      128 an iteration, syncs, peak memory), a round with injected
-     objectives copying weights and Adam moments bit for bit, the stacked
+     objectives copying weights and Adam moments bit for bit, the routed
      heads on the card against the CPU, K1 on the state reached; the CLI's
      mixed branch at a small width, 8 checkpoints and pbt_state.json, and
      a resume;
@@ -3089,26 +3089,32 @@ def _mixed_round(card: str, runner) -> None:
 
 
 def _mixed_heads_agree(card: str, runner) -> None:
-    """The stacked heads' forward (8 policies over the 4,096 agents of the
-    env batch) on the card against the CPU on the same weights."""
+    """The rollout's routed heads (8 policies, each on its own group of
+    the 4,096 agents of the env batch) on the card against the CPU on the
+    same weights."""
     import copy
     import torch
-    from quadswarm_tpu_torch.parallel.pbt_mixed import select_policy
+    from quadswarm_tpu_torch.parallel.pbt_mixed import (
+        group_rows, select_grouped)
 
     cpu = copy.copy(runner.heads)
     cpu.params = {k: v.detach().cpu() for k, v in runner.heads.params.items()}
     cpu.buffers = {k: v.cpu() for k, v in runner.heads.buffers.items()}
     obs = runner.obs.reshape(-1, runner.obs.shape[-1])
     sel = runner.assignment.reshape(-1)
+    p_count = runner.num_policies
     with torch.no_grad():
-        got = runner.heads.forward_all(obs)
-        want = cpu.forward_all(obs.cpu())
-    worst = max(_close_to_cpu(f"mixed heads {k}", select_policy(g, sel),
-                              select_policy(w, sel.cpu()))
+        groups = group_rows(sel, p_count)
+        got = runner.heads.forward_routed(obs, groups)
+        cpu_groups = group_rows(sel.cpu(), p_count)
+        want = cpu.forward_routed(obs.cpu(), cpu_groups)
+    worst = max(_close_to_cpu(f"mixed heads {k}", select_grouped(g, groups),
+                              select_grouped(w, cpu_groups))
                 for k, g, w in zip(("mean", "log_std", "value"), got, want))
-    print(f"[{card}] mixed stacked heads (8 policies x {obs.shape[0]:,} "
-          f"rows) on the card against the CPU: largest difference {worst:.3g}"
-          f" of the largest entry (rtol {CARD_RTOL} + {CARD_TOP} of it)")
+    print(f"[{card}] mixed routed heads (8 policies, groups of "
+          f"{list(groups.counts)} rows in a capacity of {groups.cap}) on the "
+          f"card against the CPU: largest difference {worst:.3g} of the "
+          f"largest entry (rtol {CARD_RTOL} + {CARD_TOP} of it)")
 
 
 def phase_mixed(card: str, train_dir: str) -> tuple:
@@ -3116,14 +3122,16 @@ def phase_mixed(card: str, train_dir: str) -> tuple:
     --pbt_mix_policies_in_one_env=True at full width (8 policies sharing
     512 envs x 8 x 128): MIXED_ITERS iterations (split, agent-steps/s, K1
     128 an iteration, syncs, peak with 8 stacked policies), a round with
-    injected objectives, the stacked heads on the card against the CPU, K1
+    injected objectives, the routed heads on the card against the CPU, K1
     on the state reached; then the CLI's mixed branch at a small width,
     which writes 8 checkpoints and pbt_state.json and resumes.  Returns
     the iterations' launch counts and K1's check."""
+    import inspect
     import shlex
     import torch
     from pathlib import Path
     from quadswarm_tpu_torch.env.params import make_dynamics_params
+    from quadswarm_tpu_torch.parallel import pbt_mixed as M
     from quadswarm_tpu_torch.parallel.pbt_mixed import MixedPBTRunner
     from quadswarm_tpu_torch.runs import pbt_quads_multi_obstacles as run
     from quadswarm_tpu_torch.training import config as C
@@ -3149,12 +3157,15 @@ def phase_mixed(card: str, train_dir: str) -> tuple:
     print(f"[{card}] mixed: {name} + --pbt_mix_policies_in_one_env=True, 8 "
           f"stacked policies, {torch.cuda.memory_allocated() / 2**20:,.0f} "
           "MiB allocated after construction")
+    src, first = inspect.getsourcelines(M.group_rows)
+    read_site = "pbt_mixed.py:%d" % (
+        first + next(i for i, x in enumerate(src) if ".tolist()" in x))
     total = _counts()
     for it in range(MIXED_ITERS):
         _reset_counts()
         t1 = time.perf_counter()
         with SyncCounter() as syncs:
-            metrics, _ = runner.iteration()
+            metrics, infos = runner.iteration()
         wall = time.perf_counter() - t1
         counts = _read_counts()
         for kid in total:
@@ -3164,11 +3175,15 @@ def phase_mixed(card: str, train_dir: str) -> tuple:
         losses = metrics["loss"].tolist()
         if len(losses) != 8 or not all(math.isfinite(x) for x in losses):
             raise AssertionError(f"mixed iteration {it}: losses {losses}")
-        # one a tick (the episode ends) and one an iteration (the
-        # objectives read for the PBT window)
-        if syncs.implicit != t + 1:
+        # one a tick (the episode ends), one an iteration (the objectives
+        # read for the PBT window), and the grouping's read of the counts:
+        # at the rollout's start and after each tick some episode ended
+        ends = int(infos["episode_done"].any(-1).sum())
+        grouping = syncs.by_site[read_site]
+        if syncs.implicit != t + 2 + ends or grouping != 1 + ends:
             raise AssertionError(f"mixed iteration {it}: {syncs.implicit} "
-                                 f"syncs, at {syncs.where}")
+                                 f"syncs with {ends} ticks ending episodes, "
+                                 f"at {dict(syncs.by_site)}")
         sec = runner.seconds
         steps = e * n * t // ppo.batch_size
         print(f"[{card}] mixed iteration {it} (8 policies, {e}x{n} x {t}, "
@@ -3179,7 +3194,8 @@ def phase_mixed(card: str, train_dir: str) -> tuple:
               f"{e * n * t / wall:,.0f} training agent-steps/s; losses "
               f"{[round(x, 4) for x in losses]}; K1 launches {counts['K1']}; "
               f"{syncs.implicit} device-to-host syncs ("
-              f"{syncs.implicit / t:.3f} per tick); peak allocated "
+              f"{syncs.implicit / t:.3f} per tick; {ends} ticks ended "
+              f"episodes; by site {dict(syncs.by_site)}); peak allocated "
               f"{torch.cuda.max_memory_allocated() / 2**20:,.0f} MiB with 8 "
               "stacked policies")
     _mixed_round(card, runner)

@@ -444,7 +444,8 @@ def _fleet_dynamics(cfg: EnvConfig, params, states: EnvState, actions, gen,
 
 def batched_env_step(cfg: EnvConfig, params, states: EnvState,
                      actions: torch.Tensor, gen: torch.Generator | None,
-                     draws: dict | None = None, auto_reset: bool = True):
+                     draws: dict | None = None, auto_reset: bool = True,
+                     ended: list | None = None):
     """One control tick for E envs.  Returns (states', obs (E, N, D),
     rewards (E, N), dones (E, N), info dict of (E,) / (E, N) tensors).
 
@@ -458,6 +459,8 @@ def batched_env_step(cfg: EnvConfig, params, states: EnvState,
     Missing draws come from `gen`.  The auto-reset always draws from `gen`.
     With auto_reset=False a finished episode stays finished, and the tick
     makes no device-to-host sync.
+    ended: a list to which the tick appends its read of whether some
+    episode ended (a host bool; auto_reset only).
     """
     cfg.check_supported()
     with span("env.step"):
@@ -468,6 +471,8 @@ def batched_env_step(cfg: EnvConfig, params, states: EnvState,
     if auto_reset:
         with span("env.sync"):
             any_done = bool(torch.any(done))
+        if ended is not None:
+            ended.append(any_done)
         if any_done:
             with span("env.reset_done"):
                 new_state, obs = reset_done(cfg, params, gen, new_state, obs,

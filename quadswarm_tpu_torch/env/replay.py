@@ -111,7 +111,8 @@ def _unit_draw(draws: dict, name: str, e: int, gen, device):
 def batched_replay_step(cfg: EnvConfig, params, sample_prob: float,
                         states: EnvState, rstates: ReplayState,
                         actions: torch.Tensor, gen: torch.Generator | None,
-                        draws: dict | None = None):
+                        draws: dict | None = None,
+                        ended: list | None = None):
     """One tick of E envs with collision replay.  Returns (states',
     rstates', obs, rewards (E, N), dones (E, N), info).
 
@@ -120,6 +121,8 @@ def batched_replay_step(cfg: EnvConfig, params, sample_prob: float,
     uniform u that picks buffer slot floor(u * max(buffer_count, 1)), and
     "replay_sensor", the sensor draws of a replayed env's observation.
     Missing draws come from `gen`; a fresh reset always draws from `gen`.
+    ended: a list to which the tick appends its read of whether some
+    episode ended (a host bool).
     """
     cfg.check_supported()
     draws = draws or {}
@@ -195,6 +198,9 @@ def batched_replay_step(cfg: EnvConfig, params, sample_prob: float,
         fire_cp, fire_write, fire_replay, fire_reset = torch.stack([
             save_cp.any(), can_write.any(), did_replay.any(),
             needs_reset.any()]).tolist()
+    if ended is not None:
+        # an ended episode is replayed or reset
+        ended.append(fire_replay or fire_reset)
     with span("replay.ring"):
         if fire_write:
             # before the checkpoint write

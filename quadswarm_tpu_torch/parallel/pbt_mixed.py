@@ -9,9 +9,13 @@ policy is the mean `true_reward` of its agents at episode ends.
 Form on one device:
 - the P policies are held stacked (`torch.func.stack_module_state`: every
   parameter a (P, ...) tensor) and run with `functional_call` under
-  `torch.vmap`, so a tick's forward over all E * N agents and P heads
-  launches about one policy's operation count (the JAX package's
-  `jax.vmap(head)`); each agent takes its assigned head's outputs;
+  `torch.vmap`, so a forward of P heads launches about one policy's
+  operation count.  The rollout routes each agent to its own head only:
+  the E * N rows are grouped by policy (`group_rows`) into a (P, cap)
+  block, each head runs on its group (`forward_routed`), and each agent
+  takes its row of its own group (`select_grouped`).  `forward_all`,
+  every head on every row, with `select_policy`, is the JAX package's
+  `jax.vmap(head)`;
 - per-agent reward coefficients reach the env as (E, N) `RewardCoeffs`
   leaves, the stacked (P,) coefficients gathered by assignment;
 - the learner runs the P masked PPO steps of a minibatch as one vmapped
@@ -106,6 +110,49 @@ def select_policy(outs: torch.Tensor, assignment_flat: torch.Tensor):
     return outs[assignment_flat, rows]
 
 
+# A group's capacity is a multiple of one GEMM tile of rows, so that it
+# does not change shape by a few rows at every episode end.
+ROW_TILE = 128
+
+
+class RowGroups(NamedTuple):
+    """The rows of a flat assignment grouped by policy."""
+    gather: torch.Tensor      # (P, cap) int64: each group's rows, then row 0
+    assignment: torch.Tensor  # (B,) int64: each row's policy
+    slot: torch.Tensor        # (B,) int64: each row's place in its group
+    counts: tuple             # P host ints: the rows of each group
+    cap: int                  # min(round_up(max count, ROW_TILE), B)
+
+
+def group_rows(assignment_flat: torch.Tensor, p_count: int) -> RowGroups:
+    """Groups the B rows by their policy on the device (a stable sort, the
+    counts and their offsets); the P counts are read to the host to size
+    the groups, the call's one device-to-host read.  Padding slots hold
+    row 0."""
+    b = assignment_flat.shape[0]
+    dev = assignment_flat.device
+    order = torch.argsort(assignment_flat, stable=True)
+    # a compare and a sum: bincount would read its input's range to the host
+    counts = (assignment_flat
+              == torch.arange(p_count, device=dev)[:, None]).sum(1)
+    offsets = torch.cumsum(counts, 0) - counts
+    slot = torch.empty_like(order)
+    slot[order] = (torch.arange(b, device=dev)
+                   - offsets[assignment_flat[order]])
+    host = tuple(counts.tolist())
+    cap = min(-(-max(host) // ROW_TILE) * ROW_TILE, b)
+    place = torch.arange(cap, device=dev)
+    src = torch.clamp(offsets[:, None] + place, max=b - 1)
+    gather = torch.where(place < counts[:, None], order[src], 0)
+    return RowGroups(gather, assignment_flat, slot, host, cap)
+
+
+def select_grouped(outs: torch.Tensor, groups: RowGroups) -> torch.Tensor:
+    """(P, cap, ...) -> (B, ...): each row's outputs under its own head,
+    from its slot in its group."""
+    return outs[groups.assignment, groups.slot]
+
+
 # --------------------------------------------------------------------------
 # Stacked normalizers: a NormalizerState whose leaves carry [P] in front,
 # passed to vmapped code as a dict of tensors.
@@ -162,6 +209,15 @@ class StackedPolicies:
         return torch.vmap(self._one, in_dims=(0, 0, 0, None))(
             self.params, self.buffers, _norm_dict(norm), obs_flat)
 
+    def forward_routed(self, obs_flat, groups: RowGroups,
+                       norm: NormalizerState | None = None):
+        """Each head on its own group of rows only: ((P, cap, A),
+        (P, cap, A), (P, cap)), in the groups' order (`select_grouped`
+        returns each row's)."""
+        return torch.vmap(self._one, in_dims=(0, 0, 0, 0))(
+            self.params, self.buffers, _norm_dict(norm),
+            obs_flat[groups.gather])
+
     def state_dict(self, p: int) -> dict:
         """Policy p's weights as the single model's state_dict."""
         out = {k: v[p].detach().clone() for k, v in self.params.items()}
@@ -202,36 +258,41 @@ def mixed_rollout(env_cfg: EnvConfig, dyn_params, heads: StackedPolicies,
     Returns (env_states', replay_states', obs', assignment', MixedTransition
     stacked over T, last_value (E, N), infos stacked over T).
 
-    Spans (`utils/tracing.py`): `pbt.heads` (every head on every row),
-    `pbt.select` (each row's head), `pbt.coeffs` (the coefficient push),
-    `pbt.assign` (the redraw); counters `pbt.head_rows` and
-    `pbt.agent_rows`, the rows the heads computed and the rows they
-    served."""
+    Each agent is computed under its own head only: the rows are grouped
+    by policy at the start and again after a tick on which some episode
+    ended (its redraw), each a read of the P counts; each head runs on its
+    group and each agent takes its row of its own group.
+
+    Spans (`utils/tracing.py`): `pbt.heads` (the gather and each head on
+    its group), `pbt.select` (each row's outputs), `pbt.coeffs` (the
+    coefficient push), `pbt.assign` (the redraw and the grouping);
+    counters `pbt.head_rows` and `pbt.agent_rows`, the rows the heads
+    computed (padding included) and the rows they served."""
     e, n = assignment.shape
     p_count = heads.num_policies
     use_replay = ppo_cfg.replay_sample_prob > 0.0 and replay_states is not None
 
-    def heads_all(obs_flat):
-        """Every head on every row; the rows computed and served are
+    def heads_routed(obs_flat, groups):
+        """Each head on its group; the rows computed and served are
         counted (host integers)."""
         with span("pbt.heads"):
-            outs = heads.forward_all(obs_flat, norm)
-        count("pbt.head_rows", p_count * e * n)
+            outs = heads.forward_routed(obs_flat, groups, norm)
+        count("pbt.head_rows", p_count * groups.cap)
         count("pbt.agent_rows", e * n)
         return outs
 
     with span("pbt.coeffs"):
         env_states = push_coeffs(env_states, coeff_table, assignment)
-    steps, infos = [], []
+    with span("pbt.assign"):
+        groups = group_rows(assignment.reshape(e * n), p_count)
+    steps, infos, ended = [], [], []
     for _ in range(ppo_cfg.rollout):
         with span("rollout.tick"):
-            sel = assignment.reshape(e * n)
             with span("rollout.policy"):
-                mean, log_std, value = heads_all(obs.reshape(e * n, -1))
+                outs = heads_routed(obs.reshape(e * n, -1), groups)
                 with span("pbt.select"):
-                    mean = select_policy(mean, sel)
-                    log_std = select_policy(log_std, sel)
-                    value = select_policy(value, sel)
+                    mean, log_std, value = (select_grouped(x, groups)
+                                            for x in outs)
             with span("rollout.sample"):
                 actions = sample_actions(gen, mean, log_std)
                 log_prob = gaussian_log_prob(mean, log_std, actions)
@@ -242,11 +303,11 @@ def mixed_rollout(env_cfg: EnvConfig, dyn_params, heads: StackedPolicies,
                         batched_replay_step(env_cfg, dyn_params,
                                             ppo_cfg.replay_sample_prob,
                                             env_states, replay_states,
-                                            actions_e, gen)
+                                            actions_e, gen, ended=ended)
                 else:
                     env_states, next_obs, rew, dones, info = \
                         batched_env_step(env_cfg, dyn_params, env_states,
-                                         actions_e, gen)
+                                         actions_e, gen, ended=ended)
             steps.append(MixedTransition(
                 obs=obs, actions=actions_e, log_prob=log_prob.reshape(e, n),
                 value=value.reshape(e, n),
@@ -260,13 +321,15 @@ def mixed_rollout(env_cfg: EnvConfig, dyn_params, heads: StackedPolicies,
                                       device=obs.device)
                 assignment = torch.where(dones.any(-1)[:, None], fresh,
                                          assignment)
+                if ended.pop():
+                    groups = group_rows(assignment.reshape(e * n), p_count)
             with span("pbt.coeffs"):
                 env_states = push_coeffs(env_states, coeff_table, assignment)
             obs = next_obs
     with span("rollout.policy"):
-        _, _, values = heads_all(obs.reshape(e * n, -1))
+        _, _, values = heads_routed(obs.reshape(e * n, -1), groups)
         with span("pbt.select"):
-            last_value = select_policy(values, assignment.reshape(e * n))
+            last_value = select_grouped(values, groups)
     with span("rollout.stack"):
         traj = MixedTransition(*(torch.stack(x) for x in zip(*steps)))
         info = {k: torch.stack([i[k] for i in infos]) for k in infos[0]}

@@ -8,10 +8,12 @@ policies mixed per agent) at a small size on the CPU: 4 envs x 8 drones,
   policy, the frozen env with each agent's own coefficients, the
   assignment by its invariants), with the obstacles and per-agent
   coefficients on: within the cell's limits;
-- every agent under the next policy's head fails `value_gap`;
+- every agent routed to the next policy's head fails `value_gap`;
 - the assignment's invariants count what breaks them;
-- the stacked heads compute P rows for each row they serve
-  (`pbt.head_rows` / `pbt.agent_rows`), and the mixture's arithmetic
+- the stacked heads compute P rows for each row they serve while one
+  GEMM tile holds every row (`pbt.head_rows` / `pbt.agent_rows`); at 32
+  envs and 8 policies each head runs on its own group of a tile, and the
+  cell stays correct; the mixture's arithmetic
   (`portbench/arith_mixed.py`) equals a hooked count of the reference's
   cat-form actor-critic;
 - the new spans and counters record under a profiler and not outside
@@ -29,13 +31,13 @@ if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
 from portbench import arith_mixed, program  # noqa: E402
-from portbench.faults_mixed import next_head  # noqa: E402
 from portbench.harness import Cell, run_cell  # noqa: E402
 from portbench.reference import config as rconf  # noqa: E402
 from portbench.reference import mixed as rmixed  # noqa: E402
 from portbench.reference.qs.models.encoders import Dense  # noqa: E402
 from quadswarm_tpu_torch.env import multi  # noqa: E402
 from quadswarm_tpu_torch.env.params import make_dynamics_params  # noqa: E402
+from quadswarm_tpu_torch.parallel import pbt_mixed  # noqa: E402
 from quadswarm_tpu_torch.parallel.pbt_mixed import (  # noqa: E402
     StackedPolicies, _coeff_table, mixed_rollout,
 )
@@ -89,10 +91,24 @@ def test_the_stacked_heads_compute_p_rows_a_row_served(sound):
     assert rows["pbt.agent_rows"] == 5 * 4 * 8
 
 
-def test_every_agent_under_the_next_head_fails_value_gap():
-    with next_head():
-        out = run_cell(CELL, SEED, 0.05, False, device="cpu",
-                       overrides=SMALL)
+def test_routing_engages_in_the_cells_own_path():
+    """256 rows in 8 groups near 32: each head computes one tile of 128
+    rows, 8 x 128 / 256 = 4 a row served."""
+    _clear_store()
+    out = run_cell(CELL, SEED, 0.05, True, device="cpu", overrides=[
+        "--num_envs=32", "--num_policies=8", "--rollout=4",
+        "--batch_size=128"])
+    assert out["correct"], out["checks"]
+    assert out["metrics"]["head_rows_per_agent.pbt8"]["value"] == 4.0
+
+
+def test_every_agent_under_the_next_head_fails_value_gap(monkeypatch):
+    """Each row grouped under the next policy's head, so computed by it
+    (the rollout selects from the groups, not with `select_policy`)."""
+    group = pbt_mixed.group_rows
+    monkeypatch.setattr(pbt_mixed, "group_rows",
+                        lambda a, p: group((a + 1) % p, p))
+    out = run_cell(CELL, SEED, 0.05, False, device="cpu", overrides=SMALL)
     gap = out["checks"]["value_gap"]
     assert gap["value"] > gap["limit"] and not out["correct"]
 

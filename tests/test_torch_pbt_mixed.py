@@ -20,9 +20,14 @@ compile the whole env); each JAX reference is the piece itself, jitted:
   arrays, draw for draw;
 - the env step with per-agent (E, N) coefficients against JAX's env with
   (N,)-leaved coefficients (3 ticks, the slice's tolerance);
-and on the port alone: assignments are redrawn only for envs that ended
-an episode and stay in range; the CLI's mixed branch writes P checkpoints
-and `pbt_state.json`, resumes, and the eval CLI loads `checkpoint_p1`.
+and on the port alone: each head on its own rows (`forward_routed` and
+`select_grouped`) against every head on every row (`forward_all` and
+`select_policy`, rtol 1e-5 / atol 1e-6), with groups under one GEMM tile,
+one policy holding every row and a policy with none; the rollout's
+grouping is rebuilt on the ticks some episode ended and follows each
+redraw, and the rollout equals one whose heads run densely; assignments are redrawn only for envs that ended an episode and
+stay in range; the CLI's mixed branch writes P checkpoints and
+`pbt_state.json`, resumes, and the eval CLI loads `checkpoint_p1`.
 """
 from __future__ import annotations
 
@@ -375,17 +380,20 @@ def test_env_step_with_per_agent_coefficients_matches_jax():
     assert collided
 
 
+def _tiny_model():
+    return t_ac.ActorCritic(
+        action_dim=4, self_obs_dim=18, neighbor_obs_dim=6, num_neighbors=2,
+        neighbor_hidden=16, rnn_size=16, device="cpu")
+
+
 def _tiny_runner(tmp_path=None, seed=0, **ppo):
     cfg = t_multi.EnvConfig(num_agents=4, quads_mode="mix",
                             neighbor_obs_type="pos_vel",
                             neighbor_visible_num=2, ep_time=0.06)
     kw = dict(rollout=8, batch_size=32, num_envs=6, replay_sample_prob=0.5)
     kw.update(ppo)
-    model = lambda: t_ac.ActorCritic(
-        action_dim=4, self_obs_dim=18, neighbor_obs_dim=6, num_neighbors=2,
-        neighbor_hidden=16, rnn_size=16, device="cpu")
     return t_mixed.MixedPBTRunner(
-        cfg, PPOConfig(**kw), model, t_make_params(dt=cfg.dt),
+        cfg, PPOConfig(**kw), _tiny_model, t_make_params(dt=cfg.dt),
         PBTConfig(num_policies=P), seed=seed, device="cpu")
 
 
@@ -412,6 +420,103 @@ def test_assignments_redrawn_only_for_envs_that_ended():
     np.testing.assert_array_equal(
         got.quadcol_bin.numpy(),
         table[names.index("quadcol_bin")][assignment].numpy())
+
+
+def _random_stacked_norm(p_count, obs_dim, gen):
+    """Per-policy obs and return normalizers with random statistics."""
+    rand = lambda *shape: torch.rand(shape, generator=gen)
+    return NormalizerState(
+        obs=RunningMeanStd(mean=rand(p_count, obs_dim) - 0.5,
+                           var=rand(p_count, obs_dim) + 0.5,
+                           count=rand(p_count) * 100 + 1),
+        ret=RunningMeanStd(mean=rand(p_count), var=rand(p_count) + 0.5,
+                           count=rand(p_count) * 100 + 1))
+
+
+@pytest.mark.parametrize("case,rows,cap", [
+    ("uniform", 512, 128),          # 8 groups near 64: routing engages
+    ("one_policy", 512, 512),       # one group holds every row
+    ("one_policy_empty", 512, 128), # policy 7 serves no row
+    ("under_one_tile", 40, 40),     # fewer rows than a tile
+])
+def test_routed_heads_with_selection_match_the_dense_heads(case, rows, cap):
+    p_count = 8
+    torch.manual_seed(0)
+    heads = t_mixed.StackedPolicies([_tiny_model()
+                                     for _ in range(p_count)])
+    gen = torch.Generator().manual_seed(1)
+    obs_dim = 18 + 2 * 6
+    obs = torch.randn((rows, obs_dim), generator=gen) * 1.5
+    if case == "one_policy":
+        assign = torch.full((rows,), 5)
+    else:
+        top = p_count - 1 if case == "one_policy_empty" else p_count
+        assign = torch.randint(0, top, (rows,), generator=gen)
+    norm = _random_stacked_norm(p_count, obs_dim, gen)
+    groups = t_mixed.group_rows(assign, p_count)
+    assert groups.cap == cap
+    assert list(groups.counts) == torch.bincount(
+        assign, minlength=p_count).tolist()
+    with torch.no_grad():
+        routed = heads.forward_routed(obs, groups, norm)
+        dense = heads.forward_all(obs, norm)
+    assert routed[0].shape == (p_count, cap, 4)
+    for r, d in zip(routed, dense):
+        np.testing.assert_allclose(
+            t_mixed.select_grouped(r, groups),
+            t_mixed.select_policy(d, assign), **TOL)
+
+
+def test_the_grouping_follows_each_redraw_and_draws_nothing(monkeypatch):
+    routed = t_mixed.StackedPolicies.forward_routed
+    used = []
+
+    def watched(self, obs_flat, groups, norm=None):
+        used.append((groups.counts, groups.assignment.clone()))
+        return routed(self, obs_flat, groups, norm)
+
+    def rollout():
+        runner = _tiny_runner()
+        return t_mixed.mixed_rollout(
+            runner.env_cfg, runner.dyn_params, runner.heads, runner.ppo_cfg,
+            runner.env_states, runner.obs, runner.assignment,
+            runner.coeff_table(), runner.gen, runner.replay_states)
+
+    group = t_mixed.group_rows
+    built = []
+
+    def counted(assignment_flat, p_count):
+        built.append(assignment_flat.clone())
+        return group(assignment_flat, p_count)
+
+    monkeypatch.setattr(t_mixed.StackedPolicies, "forward_routed", watched)
+    monkeypatch.setattr(t_mixed, "group_rows", counted)
+    got = rollout()
+    traj, infos, final = got[4], got[6], got[3]
+    ends = int(infos["episode_done"].any(-1).sum())
+    assert 0 < ends < traj.done.shape[0], "episodes of 6 ticks end within 8"
+    # at the start, then once after each tick on which some episode ended
+    assert len(built) == 1 + ends
+    seq = torch.cat([traj.assignment, final[None]])     # (T + 1, E, N)
+    assert len(used) == seq.shape[0]
+    for (counts, assign), want in zip(used, seq):
+        assert torch.equal(assign, want.reshape(-1))
+        assert list(counts) == torch.bincount(want.reshape(-1),
+                                              minlength=P).tolist()
+
+    def dense(self, obs_flat, groups, norm=None):
+        """Every head on every row, then each group's rows picked out."""
+        heads = torch.arange(self.num_policies)[:, None]
+        return tuple(x[heads, groups.gather]
+                     for x in self.forward_all(obs_flat, norm))
+
+    monkeypatch.setattr(t_mixed.StackedPolicies, "forward_routed", dense)
+    want = rollout()
+    assert torch.equal(got[3], want[3])
+    for g, w in zip(got[4], want[4]):
+        np.testing.assert_allclose(g.float(), w.float(), rtol=1e-6,
+                                   atol=1e-6)
+    np.testing.assert_allclose(got[5], want[5], rtol=1e-6, atol=1e-6)
 
 
 def test_restore_refuses_a_checkpoint_without_normalizer(tmp_path):
